@@ -1,0 +1,61 @@
+"""Software performance counters and per-kernel launch counters.
+
+``SPC`` is the minimal port of ``ompi_tpu/core/counters.py``'s event
+counters (``SPC.record(name)`` at each dispatch). ``KernelCounter`` is
+the port's own: every hand-written CUDA kernel's wrapper owns one and
+adds one to it at the single place where it launches the kernel, so a
+run can show that the main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+
+class SpcRegistry:
+    """Process-local named event counters (MPI_T pvar counters)."""
+
+    def __init__(self) -> None:
+        self._counts: dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def record(self, name: str, amount: int = 1) -> None:
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + amount
+
+    def read(self, name: str) -> int:
+        with self._lock:
+            return self._counts.get(name, 0)
+
+
+SPC = SpcRegistry()
+
+
+class KernelCounter:
+    """Launch count of one CUDA kernel, plus the semaphore scratch of its
+    last launch (read back to check that every flag ended at 0)."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.launches = 0
+        self.last_sems: Optional[object] = None
+        KERNELS[name] = self
+
+    def launched(self, sems) -> None:
+        self.launches += 1
+        self.last_sems = sems
+
+
+#: name -> counter of every kernel wrapper that has been imported.
+KERNELS: dict[str, KernelCounter] = {}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for counter in KERNELS.values():
+        counter.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: c.launches for name, c in KERNELS.items()}

@@ -1,0 +1,11 @@
+"""Reduction operators (port of ``ompi_tpu/ops``)."""
+
+from .op import (BAND, BOR, BXOR, LAND, LOR, LXOR, MAX, MAXLOC, MIN,
+                 MINLOC, NO_OP, PREDEFINED, PROD, REPLACE, SUM, Op,
+                 create_op, lookup)
+
+__all__ = [
+    "Op", "create_op", "lookup", "PREDEFINED", "SUM", "PROD", "MAX", "MIN",
+    "LAND", "LOR", "LXOR", "BAND", "BOR", "BXOR", "MAXLOC", "MINLOC",
+    "REPLACE", "NO_OP",
+]

@@ -1,0 +1,77 @@
+"""The port's CUDA kernels on a card, each against its plain version.
+
+Marked ``gpu``: without a CUDA card every test here skips with a reason
+(the kernels have no CPU mode; their plain versions are tested on the
+CPU in test_torch_pallas_ring.py). This file imports neither JAX nor the
+JAX package, so it also runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+Tolerance: bitwise. The kernels run the same schedule as the plain
+versions, combining in the same order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ompi_tpu_torch.coll import pallas_ring as pr
+from ompi_tpu_torch.core.errors import ArgumentError
+
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+       "int32": torch.int32}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _input(n, elems, dtype, device):
+    rng = np.random.default_rng(9)
+    if dtype == "int32":
+        x = rng.integers(-1000, 1000, (n, elems)).astype(np.int32)
+    else:
+        x = rng.standard_normal((n, elems)).astype(np.float32)
+    return torch.from_numpy(x).to(TDT[dtype]).to(device)
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+TIERS = {
+    "ring": (pr.allreduce_block, {"ring": pr.ring_allreduce_plain}, pr.RING),
+    "chunked": (lambda b, op, **kw: pr.allreduce_block_chunked(
+        b, op, 4096, **kw), {"chunked": pr.ring_allreduce_chunked_plain},
+        pr.CHUNKED),
+    "rd": (pr.allreduce_block_rd, {"rd": pr.ring_allreduce_rd_plain}, pr.RD),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("tier,n", [("ring", 3), ("chunked", 3), ("rd", 8),
+                                    ("ring", 8), ("chunked", 2)])
+def test_kernel_matches_plain_on_card(cuda, tier, n, dtype):
+    x = _input(n, 5000, dtype, cuda)
+    fn, plain_kw, counter = TIERS[tier]
+    for op in ("sum", "max", "min", "prod"):
+        before = counter.launches
+        got = fn(x, op)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert int(counter.last_sems.abs().sum()) == 0
+        want = fn(x, op, **plain_kw)
+        assert torch.equal(_bits(got), _bits(want)), (tier, n, dtype, op)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.ones(2, 2, 128, dtype=torch.float16, device=cuda)
+    with pytest.raises(ArgumentError):
+        pr.ring_allreduce(x, "sum")  # no float16 kernel, and no fallback
+    with pytest.raises(ArgumentError):
+        pr.ring_allreduce(x.float(), "land")
