@@ -6,28 +6,51 @@ CUDA card, ``nvcc`` and the repository's ``ompi_tpu_torch`` package;
 without a card, or without the package beside it, it exits non-zero
 and prints no result.
 
+The seven kernels (``ompi_tpu_torch/csrc/``): ``ring_allreduce``,
+``ring_allreduce_rd``, ``ring_allreduce_chunked``,
+``ring_reduce_scatter``, ``ring_allgather``, ``tree_reduce`` and
+``tree_bcast``.
+
 Phases (any failure raises and exits non-zero):
 
 1. The card's name and power limit, then a parallel build of every
-   kernel of the allreduce path from ``ompi_tpu_torch/csrc/`` with the
-   compiler's register and shared-memory report.
+   kernel from ``ompi_tpu_torch/csrc/`` (one ``nvcc`` per source, all
+   started together) with the compiler's register and spill report.
 2. Each kernel against its plain version (the protocol simulator), on
-   the card, bitwise, for int32/float32/bfloat16 x sum/max/min/prod at
-   small and ragged sizes: ring and chunked at n in {2, 3, 8},
-   recursive doubling at n in {2, 8}. Every semaphore must end at 0.
-3. The main path at full size: ``init(nranks=8)`` -> ``world.dup()``
-   with ``coll_pallas_priority=100`` -> ``comm.allreduce(x, "sum")`` on
-   float32 at 4 KiB (recursive doubling), 1 MiB (ring) and 1 GiB
-   (chunked, an 8 GiB rank-major buffer) per rank, then the same three
-   sizes through ``TunedColl`` with ``coll_tuned_allreduce_algorithm``
-   forcing each kernel's name. Launch counters are zeroed just before
-   and read just after; each result must equal the plain version.
-4. A ``kernels`` JSON line: launches, max |kernel - plain|, p50 time of
-   the kernel over 20 launches (CUDA events, after warm-up), the plain
-   version's time, the bound (2 * n * bytes per rank over 3.35 TB/s:
-   each input byte read once, each output byte written once) and the
-   time of ``x.sum(0, keepdim=True).expand_as(x).contiguous()`` as a
-   library yardstick the port never calls.
+   the card, bitwise, at small and ragged sizes, every flag back at 0:
+   the allreduce kernels for int32/float32/bfloat16 x
+   sum/max/min/prod (ring and chunked at n in {2, 3, 8}, recursive
+   doubling at n in {2, 8}); reduce-scatter and tree reduce likewise at
+   n in {2, 3, 8} (the trees at roots 0 and n-1); allgather and tree
+   bcast for the three dtypes.
+3. The main path at full width, n = 8, through ``init(nranks=8)`` and
+   two vtable routes: a ``world.dup()`` with
+   ``coll_pallas_priority=100`` (PallasColl) and one with TunedColl and
+   ``coll_tuned_<op>_algorithm`` forcing each kernel's name. Launch
+   counters are zeroed just before and read just after; every kernel
+   must have launched, and every result must equal its plain version.
+   - ``comm.allreduce(x, "sum")``, float32, at 4 KiB (recursive
+     doubling), 1 MiB (ring) and 1 GiB (chunked, an 8 GiB rank-major
+     buffer) per rank;
+   - ``comm.bcast``, float32, root 3; ``comm.reduce``, int32 MAX, root
+     5; ``comm.reduce_scatter_block``, float32 SUM, ``(8, 8, 32 Mi)``
+     elements (1 GiB sent per rank); ``comm.allgather``, float32,
+     128 MiB sent (1 GiB received) per rank; each also at 4 KiB per
+     rank, the latency regime. Each result is also checked against a
+     reduction PyTorch computes on its own (row copies, ``amax``,
+     ``sum`` to 1e-5);
+   - ``comm.allreduce`` with ``pallas_rsag`` (reduce-scatter then
+     allgather) at 1 MiB per rank, bitwise equal to ``pallas_ring``.
+   Each case frees its input, output and plain result before the next;
+   ``max_memory_allocated`` is printed.
+4. A ``kernels`` JSON line, one row per kernel at its main-path size:
+   launches on the main path, max |kernel - plain|, p50 time of the
+   kernel's wrapper over 20 launches (CUDA events, after warm-up), the
+   plain version's time, the bytes bound over 3.35 TB/s (each input
+   byte read once, each output byte written once) and the time of one
+   PyTorch call computing the same function as a library yardstick the
+   port never calls. The four kernels of the rooted and half-ring
+   collectives also carry their p50 at 4 KiB per rank (``small_ms``).
 5. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -42,20 +65,37 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KERNEL_REPS = 20
-MAIN_SIZES = {  # kernel -> bytes per rank on the main path
-    "ring_allreduce_rd": 4 << 10,
-    "ring_allreduce": 1 << 20,
-    "ring_allreduce_chunked": 1 << 30,
+GIB, MIB, KIB = 1 << 30, 1 << 20, 1 << 10
+N = 8
+MAIN_SIZES = {  # allreduce kernel -> bytes per rank on the main path
+    "ring_allreduce_rd": 4 * KIB,
+    "ring_allreduce": MIB,
+    "ring_allreduce_chunked": GIB,
 }
 TUNED_NAMES = {
     "ring_allreduce_rd": "pallas_rd",
     "ring_allreduce": "pallas_ring",
     "ring_allreduce_chunked": "pallas_ring_chunked",
 }
+# Kernel of a rooted or half-ring collective -> (the tuned var, the
+# name it forces).
+COLL_CASES = {
+    "tree_bcast": ("coll_tuned_bcast_algorithm", "pallas_binomial"),
+    "tree_reduce": ("coll_tuned_reduce_algorithm", "pallas_tree"),
+    "ring_reduce_scatter": ("coll_tuned_reduce_scatter_algorithm",
+                            "pallas_ring"),
+    "ring_allgather": ("coll_tuned_allgather_algorithm", "pallas_ring"),
+}
+COLL_SIZES = (GIB, 4 * KIB)  # main path, then the latency regime
+BCAST_ROOT, REDUCE_ROOT = 3, 5
 SOURCES = {
     "ring_allreduce": "ompi_tpu/coll/pallas_ring.py:219",
     "ring_allreduce_rd": "ompi_tpu/coll/pallas_ring.py:708",
     "ring_allreduce_chunked": "ompi_tpu/coll/pallas_ring.py:296",
+    "ring_reduce_scatter": "ompi_tpu/coll/pallas_ring.py:167",
+    "ring_allgather": "ompi_tpu/coll/pallas_ring.py:122",
+    "tree_reduce": "ompi_tpu/coll/pallas_ring.py:784",
+    "tree_bcast": "ompi_tpu/coll/pallas_ring.py:859",
 }
 
 
@@ -71,8 +111,10 @@ def bits(t):
 
 
 def max_abs_err(a, b) -> float:
-    """max |a - b| in float64, one rank row at a time (a 1 GiB row is
+    """max |a - b| in float64, one leading row at a time (a 1 GiB row is
     2 GiB in float64)."""
+    rows = a.shape[0] if a.ndim > 1 else 1
+    a, b = a.reshape(rows, -1), b.reshape(rows, -1)
     err = 0.0
     for i in range(a.shape[0]):
         if a[i].numel():
@@ -80,13 +122,13 @@ def max_abs_err(a, b) -> float:
     return err
 
 
-def random_rank_major(n, elems, dtype, gen):
+def random_rank_major(shape, dtype, gen):
     import torch
 
     if dtype == torch.int32:
-        return torch.randint(-1000, 1000, (n, elems), generator=gen,
+        return torch.randint(-1000, 1000, shape, generator=gen,
                              device="cuda", dtype=torch.int32)
-    return torch.randn((n, elems), generator=gen, device="cuda",
+    return torch.randn(shape, generator=gen, device="cuda",
                        dtype=torch.float32).to(dtype)
 
 
@@ -97,54 +139,83 @@ def check_sems(counter) -> None:
                              f"({left} left)")
 
 
+def equal_or_raise(got, want, what: str) -> float:
+    """max |got - want|, after checking that the two are bitwise equal."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != plain "
+                             f"{tuple(want.shape)}")
+    err = max_abs_err(got, want)
+    if not torch.equal(bits(got), bits(want)):
+        raise AssertionError(f"{what}: kernel != plain (max err {err})")
+    return err
+
+
 def kernel_vs_plain(pr, gen) -> None:
     import torch
 
-    seg_elems = (1 << 20) // 4
+    seg_elems = MIB // 4
     sizes = (33, 1000, seg_elems - 1, seg_elems + 1)
-    cases = [
-        ("ring_allreduce", (2, 3, 8), lambda x, op, plain: pr.allreduce_block(
-            x, op, **({"ring": pr.ring_allreduce_plain} if plain else {}))),
-        ("ring_allreduce_chunked", (2, 3, 8),
-         lambda x, op, plain: pr.allreduce_block_chunked(
-             x, op, 1 << 20, **({"chunked": pr.ring_allreduce_chunked_plain}
-                                if plain else {}))),
-        ("ring_allreduce_rd", (2, 8), lambda x, op, plain:
-         pr.allreduce_block_rd(
-             x, op, **({"rd": pr.ring_allreduce_rd_plain} if plain else {}))),
+    coll_sizes = (33, 1000, 70001)  # per block (RS) or per rank (others)
+
+    def plain_kw(plain, key, fn):
+        return {key: fn} if plain else {}
+
+    cases = [  # (kernel, ranks, shape of x, (x, op, root, plain) -> out)
+        ("ring_allreduce", (2, 3, 8), lambda n, e: (n, e),
+         lambda x, op, root, plain: pr.allreduce_block(
+             x, op, **plain_kw(plain, "ring", pr.ring_allreduce_plain))),
+        ("ring_allreduce_chunked", (2, 3, 8), lambda n, e: (n, e),
+         lambda x, op, root, plain: pr.allreduce_block_chunked(
+             x, op, MIB, **plain_kw(plain, "chunked",
+                                    pr.ring_allreduce_chunked_plain))),
+        ("ring_allreduce_rd", (2, 8), lambda n, e: (n, e),
+         lambda x, op, root, plain: pr.allreduce_block_rd(
+             x, op, **plain_kw(plain, "rd", pr.ring_allreduce_rd_plain))),
+        ("ring_reduce_scatter", (2, 3, 8), lambda n, e: (n, n, e),
+         lambda x, op, root, plain: pr.reduce_scatter_block(
+             x, op, **plain_kw(plain, "rs", pr.ring_reduce_scatter_plain))),
+        ("ring_allgather", (2, 3, 8), lambda n, e: (n, e),
+         lambda x, op, root, plain: pr.allgather_block(
+             x, **plain_kw(plain, "ag", pr.ring_allgather_plain))),
+        ("tree_reduce", (2, 3, 8), lambda n, e: (n, e),
+         lambda x, op, root, plain: pr.reduce_block(
+             x, op, root, **plain_kw(plain, "tree", pr.tree_reduce_plain))),
+        ("tree_bcast", (2, 3, 8), lambda n, e: (n, e),
+         lambda x, op, root, plain: pr.bcast_block(
+             x, root, **plain_kw(plain, "tree", pr.tree_bcast_plain))),
     ]
     from ompi_tpu_torch.core.counters import KERNELS
 
-    for name, ns, fn in cases:
+    for name, ns, shape_of, fn in cases:
         t0 = time.time()
         checked = 0
+        reduces = name not in ("ring_allgather", "tree_bcast")
         for n in ns:
+            roots = (0, n - 1) if name.startswith("tree") else (0,)
             for dtype in (torch.int32, torch.float32, torch.bfloat16):
-                for op in ("sum", "max", "min", "prod"):
-                    for elems in sizes:
-                        x = random_rank_major(n, elems, dtype, gen)
-                        got = fn(x, op, False)
-                        torch.cuda.synchronize()
-                        check_sems(KERNELS[name])
-                        want = fn(x, op, True)
-                        if not torch.equal(bits(got), bits(want)):
-                            raise AssertionError(
-                                f"{name} n={n} {dtype} {op} elems={elems}: "
-                                f"kernel != plain (max err "
-                                f"{max_abs_err(got, want)})")
-                        checked += 1
+                for op in ("sum", "max", "min", "prod") if reduces else (None,):
+                    for elems in (sizes if name in MAIN_SIZES
+                                  else coll_sizes):
+                        x = random_rank_major(shape_of(n, elems), dtype, gen)
+                        for root in roots:
+                            got = fn(x, op, root, False)
+                            torch.cuda.synchronize()
+                            check_sems(KERNELS[name])
+                            equal_or_raise(
+                                got, fn(x, op, root, True),
+                                f"{name} n={n} {dtype} {op} root={root} "
+                                f"elems={elems}")
+                            checked += 1
         log(f"[kernel-vs-plain] {name}: {checked} cases bitwise equal, "
             f"all semaphores 0 ({time.time() - t0:.1f} s)")
 
 
-def main_path(tt, pr, config, gen) -> tuple[dict, dict]:
-    """Both vtable routes at full size; returns (kernel -> max error,
-    kernel -> launches on the main path)."""
+def allreduce_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
+    """The allreduce kernels through both routes; kernel -> max error."""
     import torch
-    from ompi_tpu_torch.core import counters
 
-    world = tt.init(nranks=8)
-    n = world.size
     errs = {k: 0.0 for k in MAIN_SIZES}
     plain_of = {
         "ring_allreduce_rd": lambda x: pr.allreduce_block_rd(
@@ -156,8 +227,8 @@ def main_path(tt, pr, config, gen) -> tuple[dict, dict]:
     }
 
     def run(comm, kernel, route):
-        elems = MAIN_SIZES[kernel] // 4
-        x = random_rank_major(n, elems, torch.float32, gen)
+        x = random_rank_major((N, MAIN_SIZES[kernel] // 4), torch.float32,
+                              gen)
         t0 = time.time()
         out = comm.allreduce(x, "sum")
         torch.cuda.synchronize()
@@ -169,35 +240,148 @@ def main_path(tt, pr, config, gen) -> tuple[dict, dict]:
         if not bool((out == out[:1]).all()):
             raise AssertionError(f"{route} {kernel}: ranks disagree")
         want = plain_of[kernel](x)
-        err = max_abs_err(out, want)
-        if not torch.equal(bits(out), bits(want)):
-            raise AssertionError(f"{route} {kernel}: kernel != plain "
-                                 f"(max err {err})")
-        errs[kernel] = max(errs[kernel], err)
-        log(f"[main] {route} {kernel}: {MAIN_SIZES[kernel]} B/rank x {n} "
+        errs[kernel] = max(errs[kernel],
+                           equal_or_raise(out, want, f"{route} {kernel}"))
+        log(f"[main] {route} {kernel}: {MAIN_SIZES[kernel]} B/rank x {N} "
             f"ranks, {dt * 1e3:.3f} ms host wall (first call), equal to "
             f"plain")
         del x, out, want
         torch.cuda.empty_cache()
 
-    config.VARS.set("coll_pallas_priority", 100)
-    pcomm = world.dup()
-    if pcomm._coll["allreduce"][0].NAME != "pallas":
-        raise AssertionError("pallas component not selected")
-    config.VARS.set("coll_pallas_priority", 30)
-    tcomm = world.dup()
-    if tcomm._coll["allreduce"][0].NAME != "tuned":
-        raise AssertionError("tuned component not selected")
-
-    counters.reset_launches()
     for kernel in MAIN_SIZES:
         run(pcomm, kernel, "PallasColl")
     for kernel, algo in TUNED_NAMES.items():
         config.VARS.set("coll_tuned_allreduce_algorithm", algo)
         run(tcomm, kernel, f"TunedColl[{algo}]")
     config.VARS.set("coll_tuned_allreduce_algorithm", "")
+    return errs
+
+
+def coll_input(kernel, nbytes, gen):
+    """The main path's input of a rooted or half-ring collective at
+    ``nbytes`` per rank (sent for reduce-scatter, received for
+    allgather)."""
+    import torch
+
+    if kernel == "tree_reduce":
+        return random_rank_major((N, nbytes // 4), torch.int32, gen)
+    if kernel == "ring_reduce_scatter":
+        return random_rank_major((N, N, nbytes // 4 // N), torch.float32, gen)
+    if kernel == "ring_allgather":
+        return random_rank_major((N, nbytes // 4 // N), torch.float32, gen)
+    return random_rank_major((N, nbytes // 4), torch.float32, gen)
+
+
+def coll_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
+    """bcast, reduce, reduce_scatter_block and allgather through both
+    routes at 1 GiB and 4 KiB per rank; kernel -> max error."""
+    import torch
+
+    errs = {k: 0.0 for k in COLL_CASES}
+
+    def call(comm, kernel, x):
+        if kernel == "tree_bcast":
+            return comm.bcast(x, BCAST_ROOT)
+        if kernel == "tree_reduce":
+            return comm.reduce(x, "max", REDUCE_ROOT)
+        if kernel == "ring_reduce_scatter":
+            return comm.reduce_scatter_block(x, "sum")
+        return comm.allgather(x)
+
+    def plain(kernel, x):
+        if kernel == "tree_bcast":
+            return pr.bcast_block(x, BCAST_ROOT, tree=pr.tree_bcast_plain)
+        if kernel == "tree_reduce":
+            return pr.reduce_block(x, "max", REDUCE_ROOT,
+                                   tree=pr.tree_reduce_plain)[REDUCE_ROOT]
+        if kernel == "ring_reduce_scatter":
+            return pr.reduce_scatter_block(x, "sum",
+                                           rs=pr.ring_reduce_scatter_plain)
+        return pr.allgather_block(x, ag=pr.ring_allgather_plain)
+
+    def independent_check(kernel, x, out, what):
+        """The result against what PyTorch computes on its own."""
+        if kernel == "tree_bcast":
+            ok = out.shape == x.shape and all(
+                torch.equal(out[i], x[BCAST_ROOT]) for i in range(N))
+        elif kernel == "tree_reduce":
+            ok = torch.equal(out, x.amax(0))
+        elif kernel == "ring_reduce_scatter":
+            # float32 sums in another order: a few ulps apart.
+            ok = bool(torch.isfinite(out).all()) and torch.allclose(
+                out, x.sum(0), rtol=1e-5, atol=1e-5)
+        else:
+            ok = out.shape == (N,) + tuple(x.shape) and all(
+                torch.equal(out[i], x) for i in range(N))
+        if not ok:
+            raise AssertionError(f"{what}: wrong result")
+
+    def run(comm, kernel, nbytes, route):
+        x = coll_input(kernel, nbytes, gen)
+        t0 = time.time()
+        out = call(comm, kernel, x)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        check_sems(counters.KERNELS[kernel])
+        what = f"{route} {kernel} {nbytes} B/rank"
+        independent_check(kernel, x, out, what)
+        want = plain(kernel, x)
+        errs[kernel] = max(errs[kernel], equal_or_raise(out, want, what))
+        log(f"[main] {what} x {N} ranks: {dt * 1e3:.3f} ms host wall "
+            f"(first call), equal to plain and to the torch check")
+        del x, out, want
+        torch.cuda.empty_cache()
+
+    for kernel in COLL_CASES:
+        for nbytes in COLL_SIZES:
+            run(pcomm, kernel, nbytes, "PallasColl")
+    for kernel, (var, algo) in COLL_CASES.items():
+        config.VARS.set(var, algo)
+        for nbytes in COLL_SIZES:
+            run(tcomm, kernel, nbytes, f"TunedColl[{algo}]")
+        config.VARS.set(var, "")
+
+    # pallas_rsag: the two halves one after the other fold every element
+    # in the ring's order, so they equal pallas_ring bit for bit.
+    x = random_rank_major((N, MIB // 4), torch.float32, gen)
+    config.VARS.set("coll_tuned_allreduce_algorithm", "pallas_rsag")
+    got = tcomm.allreduce(x, "sum")
+    config.VARS.set("coll_tuned_allreduce_algorithm", "pallas_ring")
+    ring = tcomm.allreduce(x, "sum")
+    config.VARS.set("coll_tuned_allreduce_algorithm", "")
+    torch.cuda.synchronize()
+    equal_or_raise(got, ring, "TunedColl[pallas_rsag] vs [pallas_ring]")
+    log(f"[main] TunedColl[pallas_rsag] {MIB} B/rank x {N} ranks: bitwise "
+        f"equal to TunedColl[pallas_ring]")
+    return errs
+
+
+def main_path(tt, pr, config) -> tuple[dict, dict]:
+    """Both vtable routes at full size; returns (kernel -> max error,
+    kernel -> launches on the main path)."""
+    import torch
+    from ompi_tpu_torch.core import counters
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    world = tt.init(nranks=N)
+    config.VARS.set("coll_pallas_priority", 100)
+    pcomm = world.dup()
+    config.VARS.set("coll_pallas_priority", 30)
+    tcomm = world.dup()
+    for opname in ("allreduce",) + tuple(
+            {"tree_bcast": "bcast", "tree_reduce": "reduce",
+             "ring_reduce_scatter": "reduce_scatter_block",
+             "ring_allgather": "allgather"}.values()):
+        if pcomm._coll[opname][0].NAME != "pallas":
+            raise AssertionError(f"pallas component not selected: {opname}")
+        if tcomm._coll[opname][0].NAME != "tuned":
+            raise AssertionError(f"tuned component not selected: {opname}")
+
+    counters.reset_launches()
+    errs = allreduce_path(pcomm, tcomm, pr, config, counters, gen)
+    errs.update(coll_path(pcomm, tcomm, pr, config, counters, gen))
     launches = counters.launches()
-    for kernel in MAIN_SIZES:
+    for kernel in SOURCES:
         if launches.get(kernel, 0) < 1:
             raise AssertionError(f"main path never launched {kernel}")
     tt.finalize()
@@ -222,13 +406,14 @@ def p50_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def measure(pr, gen, errs, launches) -> list:
+def timed_case(pr, kernel, nbytes, gen):
+    """(kernel call, plain call, library call, bound bytes, dtype, op) at
+    ``nbytes`` per rank, on the kernel's own layout."""
     import torch
 
-    rows = []
-    n = 8
-    for kernel, nbytes in MAIN_SIZES.items():
-        x = random_rank_major(n, nbytes // 4, torch.float32, gen)
+    n = N
+    if kernel in MAIN_SIZES:
+        x = random_rank_major((n, nbytes // 4), torch.float32, gen)
         if kernel == "ring_allreduce_rd":
             inp = x
             fn = lambda: pr.ring_allreduce_rd(inp, "sum")  # noqa: E731
@@ -239,30 +424,67 @@ def measure(pr, gen, errs, launches) -> list:
             plain = lambda: pr.ring_allreduce_plain(inp, "sum")  # noqa: E731
         else:
             rows_, seg_rows = pr._chunked_layout(nbytes // 4, n,
-                                                 torch.float32, 1 << 20)
+                                                 torch.float32, MIB)
             inp = x.reshape(n, n, rows_ * pr.LANES)
             seg = seg_rows * pr.LANES
             fn = lambda: pr.ring_allreduce_chunked(inp, "sum", seg)  # noqa: E731
             plain = lambda: pr.ring_allreduce_chunked_plain(  # noqa: E731
                 inp, "sum", seg)
+        library = lambda: x.sum(0, keepdim=True).expand_as(x).contiguous()  # noqa: E731
+        return fn, plain, library, 2 * n * nbytes, "float32", "sum"
+    x = coll_input(kernel, nbytes, gen)  # sizes are multiples of 128 lanes
+    if kernel == "tree_bcast":
+        return (lambda: pr.tree_bcast(x, BCAST_ROOT),
+                lambda: pr.tree_bcast_plain(x, BCAST_ROOT),
+                lambda: x[BCAST_ROOT].expand_as(x).contiguous(),
+                nbytes + n * nbytes, "float32", None)
+    if kernel == "tree_reduce":
+        return (lambda: pr.tree_reduce(x, "max", REDUCE_ROOT),
+                lambda: pr.tree_reduce_plain(x, "max", REDUCE_ROOT),
+                lambda: x.amax(0), n * nbytes + nbytes, "int32", "max")
+    if kernel == "ring_reduce_scatter":
+        return (lambda: pr.ring_reduce_scatter(x, "sum"),
+                lambda: pr.ring_reduce_scatter_plain(x, "sum"),
+                lambda: x.sum(0), n * nbytes + nbytes, "float32", "sum")
+    return (lambda: pr.ring_allgather(x),
+            lambda: pr.ring_allgather_plain(x),
+            lambda: x.unsqueeze(0).expand((n,) + tuple(x.shape)).contiguous(),
+            nbytes + n * nbytes, "float32", None)
+
+
+def measure(pr, gen, errs, launches) -> list:
+    import torch
+
+    rows = []
+    sizes = dict(MAIN_SIZES, **{k: GIB for k in COLL_CASES})
+    for kernel, nbytes in sizes.items():
+        fn, plain, library, nbytes_moved, dtype, op = timed_case(
+            pr, kernel, nbytes, gen)
         ms = p50_ms(fn, KERNEL_REPS)
-        plain_ms = p50_ms(plain, 3 if nbytes >= (1 << 30) else 10)
-        library_ms = p50_ms(
-            lambda: x.sum(0, keepdim=True).expand_as(x).contiguous(),
-            KERNEL_REPS)
-        bound_ms = 2 * n * nbytes / HBM_BYTES_PER_S * 1e3
-        rows.append({
+        plain_ms = p50_ms(plain, 3 if nbytes >= GIB else 10)
+        library_ms = p50_ms(library, KERNEL_REPS)
+        bound_ms = nbytes_moved / HBM_BYTES_PER_S * 1e3
+        row = {
             "name": kernel, "route": "cuda",
             "source": f"ompi_tpu_torch/csrc/{kernel}.cu",
             "replaces": SOURCES[kernel], "launches": launches[kernel],
             "max_abs_err": errs[kernel], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms, "bytes_per_rank": nbytes,
-            "nranks": n, "dtype": "float32", "op": "sum",
-        })
-        log(f"[time] {kernel}: {ms:.4f} ms p50 (bound {bound_ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, library {library_ms:.4f} ms)")
-        del x, inp
+            "nranks": N, "dtype": dtype, "op": op,
+        }
+        del fn, plain, library
+        torch.cuda.empty_cache()
+        extra = ""
+        if kernel in COLL_CASES:
+            fn, _, _, _, _, _ = timed_case(pr, kernel, 4 * KIB, gen)
+            row["small_ms"] = p50_ms(fn, KERNEL_REPS)
+            extra = f", {row['small_ms']:.4f} ms at 4 KiB/rank"
+            del fn
+        rows.append(row)
+        log(f"[time] {kernel}: {ms:.4f} ms p50 at {nbytes} B/rank (bound "
+            f"{bound_ms:.4f} ms, plain {plain_ms:.3f} ms, library "
+            f"{library_ms:.4f} ms){extra}")
         torch.cuda.empty_cache()
     return rows
 
@@ -293,7 +515,7 @@ def main() -> int:
         f"(parallel nvcc)")
     for name in SOURCES:
         # ptxas prints one "Used N registers" and one "spill" line per
-        # instantiation (4 ops x 3 dtypes): print each distinct one once.
+        # instantiation (ops x dtypes): print each distinct one once.
         seen: dict[str, int] = {}
         for line in build.BUILD_LOGS[name].splitlines():
             text = line.replace("ptxas info    :", "").strip()
@@ -305,7 +527,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernel_vs_plain(pr, gen)
     torch.cuda.reset_peak_memory_stats()
-    errs, launches = main_path(tt, pr, config, gen)
+    errs, launches = main_path(tt, pr, config)
     log(f"[main] launches on the main path: {launches}")
     log(f"[memory] max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")

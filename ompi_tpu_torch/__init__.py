@@ -3,9 +3,11 @@ NVIDIA H100.
 
 The port is a package of its own beside ``ompi_tpu/``, which stays the
 reference. Its main path is the one ``ompi_tpu`` runs for IMB-MPI1
-``MPI_Allreduce``: ``init`` → ``Communicator`` → coll vtable →
-``allreduce``, through hand-written CUDA counterparts of the Pallas
-ring kernels (``coll/pallas_ring.py``, sources in ``csrc/``).
+``MPI_Allreduce``, ``MPI_Bcast``, ``MPI_Reduce``,
+``MPI_Reduce_scatter_block`` and ``MPI_Allgather``: ``init`` →
+``Communicator`` → coll vtable → the collective, through hand-written
+CUDA counterparts of the Pallas ring and tree kernels
+(``coll/pallas_ring.py``, sources in ``csrc/``).
 
 Rules of the port:
 

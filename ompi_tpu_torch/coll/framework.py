@@ -19,7 +19,8 @@ from ..core.counters import SPC
 from ..core.errors import ArgumentError
 
 # Collective operations a component may provide (the JAX package's
-# OPERATIONS tuple; this slice ports allreduce).
+# OPERATIONS tuple; the port has allreduce, bcast, reduce, allgather and
+# reduce_scatter_block so far).
 OPERATIONS = (
     "allreduce", "bcast", "reduce", "allgather", "reduce_scatter_block",
     "alltoall", "gather", "scatter", "scan", "exscan", "barrier",
@@ -40,7 +41,7 @@ class CollComponent(mca.Component):
 
 def ensure_components() -> None:
     """Import the component modules so they register with COLL."""
-    from . import pallas_ring, tuned, xla  # noqa: F401
+    from . import basic, pallas_ring, tuned, xla  # noqa: F401
 
 
 def select_for_comm(comm) -> dict[str, tuple[Any, Callable]]:

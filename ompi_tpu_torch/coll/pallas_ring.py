@@ -1,9 +1,9 @@
-"""coll/pallas — the hand-scheduled ring allreduce kernels, on Hopper.
+"""coll/pallas — the hand-scheduled collective kernels, on Hopper.
 
-Port of ``ompi_tpu/coll/pallas_ring.py``'s allreduce path. The JAX
-package writes three Pallas kernels for it; each is a hand-written CUDA
-kernel here (``csrc/``), with a wrapper, a plain version and a launch
-counter:
+Port of ``ompi_tpu/coll/pallas_ring.py``'s allreduce, reduce, bcast,
+allgather and reduce_scatter_block paths. Each Pallas kernel on them is
+a hand-written CUDA kernel here (``csrc/``), with a wrapper, a plain
+version and a launch counter:
 
 - ``ring_allreduce`` (``_allreduce_kernel``): the whole-payload ring,
   2(n-1) steps over a two-slot comm buffer with credits.
@@ -13,6 +13,14 @@ counter:
 - ``ring_allreduce_chunked`` (``_allreduce_chunked_kernel``): the ring
   streamed in segments with a per-segment credit, so comm scratch stays
   at n·2·segment bytes however large the message.
+- ``ring_reduce_scatter`` (``_reduce_scatter_kernel``) and
+  ``ring_allgather`` (``_allgather_kernel``): the two halves of the
+  ring, n-1 steps each; one after the other they are the
+  ``pallas_rsag`` allreduce, bitwise equal to ``ring_allreduce``.
+- ``tree_reduce`` (``_tree_reduce_kernel``): binomial reduce to a root,
+  one comm slot per sender.
+- ``tree_bcast`` (``_tree_bcast_kernel``): binomial broadcast from a
+  root, with the receiver's "ready" handshake before each store.
 
 Ranks on one card: a rank-major ``(n, ...)`` tensor holds n virtual
 ranks. A Pallas remote DMA becomes stores into the peer rank's comm slot
@@ -22,23 +30,26 @@ launch at 0.
 
 Credit placement differs from the reference on purpose. The reference
 credits a comm slot to its left neighbour right after FILLING it
-(``pallas_ring.py:263-267``, ``:387-391``), though it still has to send
-from that slot at the next step; a left neighbour that runs ahead
-overwrites the partial before it is forwarded. The port credits a slot
-right after the send FROM it (steps 0..2n-4) and drops the post-seed
-credit. ``simulate_ring`` runs either placement under seeded random
+(``pallas_ring.py:263-267``, ``:387-391``, and in the two halves
+``:159-164``, ``:208-214``, after a post-seed credit ``:135-137``,
+``:184-186``), though it still has to send from that slot at the next
+step; a left neighbour that runs ahead overwrites the partial before it
+is forwarded. The port credits a slot right after the send FROM it
+(every step but the last) and drops the post-seed credit.
+``simulate_ring`` runs either placement under seeded random
 interleavings; the tests show the reference's placement fails there and
 the port's does not.
 
-Plain versions: ``simulate_ring``/``simulate_rd`` run the same slot and
-flag schedule rank by rank on tensors (what ``pallas_lower.simulate`` is
-to the JAX package). A wrapper uses its plain version only for a tensor
-on the CPU; for a CUDA tensor it launches the kernel or raises.
+Plain versions: ``simulate_ring``/``simulate_rd``/``simulate_tree_*``
+run the same slot and flag schedule rank by rank on tensors (what
+``pallas_lower.simulate`` is to the JAX package). A wrapper uses its
+plain version only for a tensor on the CPU; for a CUDA tensor it
+launches the kernel or raises.
 
-Block boundaries equal the JAX package's: ``_split_ring`` and
-``_chunked_layout`` copy its padding and blocking math, which decides
-at which rank each element's reduction starts, and so the bits of a
-floating-point sum.
+Block boundaries equal the JAX package's: ``_split_ring``,
+``_chunked_layout`` and ``_pad_chunk`` copy its padding and blocking
+math, which decides at which rank each element's reduction starts, and
+so the bits of a floating-point sum.
 """
 
 from __future__ import annotations
@@ -87,6 +98,10 @@ RING_NSEM = 5
 RING = KernelCounter("ring_allreduce")
 RD = KernelCounter("ring_allreduce_rd")
 CHUNKED = KernelCounter("ring_allreduce_chunked")
+RS = KernelCounter("ring_reduce_scatter")
+AG = KernelCounter("ring_allgather")
+TREE_REDUCE = KernelCounter("tree_reduce")
+TREE_BCAST = KernelCounter("tree_bcast")
 
 _OP_CODES = {"sum": 0, "prod": 1, "max": 2, "min": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -96,6 +111,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 # Protocol simulator: the plain versions of the kernels.
 # ---------------------------------------------------------------------------
 
+#: A wait that is always satisfied: a bare scheduling point.
+_PAUSE = (None, 0)
+
+
 def _drive(programs: list, sems: dict, rng: Optional[random.Random]) -> None:
     """Run rank programs to completion. A program is a generator that
     yields ``(flag key, count)`` when it waits; a wait is satisfied when
@@ -103,7 +122,8 @@ def _drive(programs: list, sems: dict, rng: Optional[random.Random]) -> None:
     scheduling point: with ``rng`` None the ranks take turns in ring
     order (lock-step), with a ``random.Random`` a ready rank is picked
     at random. A copy or a signal between two waits is atomic, as a DMA
-    is at its start."""
+    is at its start; a program yields ``_PAUSE`` where another rank may
+    run between two of its actions without a wait."""
     nranks = len(programs)
     waiting = {r: None for r in range(nranks)}
     last = nranks - 1
@@ -131,13 +151,29 @@ def _residue(sems: dict) -> dict:
     return {k: v for k, v in sems.items() if v}
 
 
-def simulate_ring(blocks: torch.Tensor, op: Op, seg_cols: Optional[int] = None,
-                  *, segmented: bool = False, credit: str = "port",
-                  rng: Optional[random.Random] = None):
-    """Run the ring allreduce schedule on ``blocks`` (rank, block, col)
-    of shape (n, n, W), segment by segment of ``seg_cols`` columns.
-    Returns (out, residue): out has the shape of blocks, residue maps
-    every flag not back at 0 to its count.
+def _ring_blocks(x: torch.Tensor, rs: bool) -> tuple[int, int]:
+    """(n, W) of ring input x: (n, n, W) blocks when the schedule
+    reduce-scatters, the (n, W) own blocks of an allgather alone."""
+    n, W = x.shape[0], x.shape[-1]
+    if tuple(x.shape) != ((n, n, W) if rs else (n, W)):
+        raise ArgumentError(
+            f"ring input must be {'(n, n, W)' if rs else '(n, W)'}, got "
+            f"{tuple(x.shape)}")
+    return n, W
+
+
+def simulate_ring(x: torch.Tensor, op: Optional[Op],
+                  seg_cols: Optional[int] = None, *, segmented: bool = False,
+                  credit: str = "port", rng: Optional[random.Random] = None,
+                  phase: str = "both"):
+    """Run the ring schedule on ``x`` segment by segment of ``seg_cols``
+    columns. ``phase`` picks the halves, as the kernels' ``RingPhase``
+    does: "both" (the allreduce) takes and returns (rank, block, col)
+    blocks of shape (n, n, W); "rs" (reduce-scatter) takes (n, n, W)
+    and returns (n, W), each rank's own reduced block; "ag" (allgather,
+    ``op`` unused) takes each rank's own block (n, W) and returns
+    (n, n, W). Returns (out, residue): residue maps every flag not back
+    at 0 to its count.
 
     ``segmented`` adds the chunked kernel's per-segment credit (primed
     once, granted after each segment, drained at exit). ``credit``
@@ -145,31 +181,37 @@ def simulate_ring(blocks: torch.Tensor, op: Op, seg_cols: Optional[int] = None,
     (a post-seed credit, then a credit right after filling a slot)."""
     if credit not in ("port", "reference"):
         raise ArgumentError(f"unknown credit placement {credit!r}")
-    n, nb, W = blocks.shape
-    if nb != n:
-        raise ArgumentError(f"ring blocks must be (n, n, W), got "
-                            f"{tuple(blocks.shape)}")
+    if phase not in ("both", "rs", "ag"):
+        raise ArgumentError(f"unknown ring phase {phase!r}")
+    rs, ag = phase != "ag", phase != "rs"
+    n, W = _ring_blocks(x, rs)
     seg = W if seg_cols is None else seg_cols
     if seg <= 0 or W % seg:
         raise ArgumentError(f"segment {seg} does not divide {W}")
     n_segs = W // seg
-    out = torch.empty_like(blocks)
-    comm = blocks.new_empty((n, 2, seg))
+    out = x.new_empty((n, n, W) if ag else (n, W))
+    comm = x.new_empty((n, 2, seg))
     sems: dict = collections.defaultdict(int)
-    nsteps = 2 * (n - 1)
+    rs_steps = n - 1 if rs else 0
+    nsteps = rs_steps + (n - 1 if ag else 0)
 
     def rank(me):
         left, right = (me - 1) % n, (me + 1) % n
-        x, o = blocks[me], out[me]
+        xr, o = x[me], out[me]
+        own = o[me] if ag else o  # where this rank's own block ends up
         if segmented:
             sems[left, "seg"] += 1
         for si in range(n_segs):
             cols = slice(si * seg, (si + 1) * seg)
             if segmented:
                 yield (me, "seg"), 1
-            comm[me, 0] = x[(me - 1) % n, cols]
-            if credit == "reference":
+            comm[me, 0] = xr[left, cols] if rs else xr[cols]
+            if not rs:
+                own[cols] = xr[cols]
+            if credit == "reference" and nsteps > 1:
                 sems[left, "cap", 0] += 1
+            # The seed is not sent with the post-seed credit's signal.
+            yield _PAUSE
             for step in range(nsteps):
                 slot, nslot = step % 2, (step + 1) % 2
                 if step >= 1:
@@ -179,14 +221,14 @@ def simulate_ring(blocks: torch.Tensor, op: Op, seg_cols: Optional[int] = None,
                 if credit == "port" and step < nsteps - 1:
                     sems[left, "cap", slot] += 1
                 yield (me, "recv", nslot), 1
-                if step < n - 1:
+                if step < rs_steps:
                     blk = (me - step - 2) % n
-                    val = op.combine(comm[me, nslot], x[blk, cols])
+                    val = op.combine(comm[me, nslot], xr[blk, cols])
                     comm[me, nslot] = val
                     if step == n - 2:
-                        o[blk, cols] = val
+                        own[cols] = val
                 else:
-                    blk = (me - (step - (n - 1)) - 1) % n
+                    blk = (me - (step - rs_steps) - 1) % n
                     o[blk, cols] = comm[me, nslot]
                 if credit == "reference" and step < nsteps - 2:
                     sems[left, "cap", nslot] += 1
@@ -226,6 +268,67 @@ def simulate_rd(flat: torch.Tensor, op: Op, *,
     return out, _residue(sems)
 
 
+def simulate_tree_reduce(flat: torch.Tensor, op: Op, root: int = 0, *,
+                         rng: Optional[random.Random] = None):
+    """Run the binomial reduce-to-root schedule on ``flat`` (n, L). With
+    rel = (me - root) mod n, in round k a rank whose rel has lowest set
+    bit 2^k puts its accumulator in its own comm slot (rel - 1) and
+    leaves; its parent rel - 2^k waits for that slot's flag and folds
+    ``combine(acc, arrival)``. Row ``root`` of out is the reduction, the
+    other rows partial accumulators. Returns (out, residue)."""
+    n, L = flat.shape
+    out = flat.clone()
+    comm = flat.new_empty((max(n - 1, 1), L))
+    sems: dict = collections.defaultdict(int)
+
+    def rank(me):
+        rel = (me - root) % n
+        bit = 1
+        while bit < n:
+            low = rel & (2 * bit - 1)
+            if low == bit:
+                comm[rel - 1] = out[me]
+                sems["recv", rel - 1] += 1
+                return
+            if low == 0 and rel + bit < n:
+                yield ("recv", rel + bit - 1), 1
+                out[me] = op.combine(out[me], comm[rel + bit - 1])
+            bit <<= 1
+
+    _drive([rank(r) for r in range(n)], sems, rng)
+    return out, _residue(sems)
+
+
+def simulate_tree_bcast(flat: torch.Tensor, root: int = 0, *,
+                        rng: Optional[random.Random] = None):
+    """Run the binomial broadcast schedule on ``flat`` (n, L). Every
+    rank first copies its row into out; in round k a receiver
+    (2^k <= rel < 2^(k+1)) signals ready to its sender rel - 2^k and
+    waits, and the sender waits for ready, then stores its out row into
+    the receiver's. Each round has its own flag pair. Returns (out,
+    residue); every row of out is row ``root`` of flat."""
+    n, L = flat.shape
+    out = torch.empty_like(flat)
+    sems: dict = collections.defaultdict(int)
+    rounds = (n - 1).bit_length()
+
+    def rank(me):
+        rel = (me - root) % n
+        out[me] = flat[me]
+        for k in range(rounds):
+            bit = 1 << k
+            if bit <= rel < 2 * bit:
+                sems[(me - bit) % n, "ready", k] += 1
+                yield (me, "recv", k), 1
+            elif rel < bit and rel + bit < n:
+                yield (me, "ready", k), 1
+                out[(me + bit) % n] = out[me]
+                sems[(me + bit) % n, "recv", k] += 1
+
+    _drive([rank(r) for r in range(n)], sems, rng)
+    return out, _residue(sems)
+
+
 def _checked(result):
     out, residue = result
     if residue:
@@ -247,6 +350,22 @@ def ring_allreduce_rd_plain(flat: torch.Tensor, op) -> torch.Tensor:
     return _checked(simulate_rd(flat, op_lookup(op)))
 
 
+def ring_reduce_scatter_plain(blocks: torch.Tensor, op) -> torch.Tensor:
+    return _checked(simulate_ring(blocks, op_lookup(op), phase="rs"))
+
+
+def ring_allgather_plain(flat: torch.Tensor) -> torch.Tensor:
+    return _checked(simulate_ring(flat, None, phase="ag"))
+
+
+def tree_reduce_plain(flat: torch.Tensor, op, root: int) -> torch.Tensor:
+    return _checked(simulate_tree_reduce(flat, op_lookup(op), root))
+
+
+def tree_bcast_plain(flat: torch.Tensor, root: int) -> torch.Tensor:
+    return _checked(simulate_tree_bcast(flat, root))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
@@ -261,6 +380,14 @@ _ARGTYPES = {
         [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, L, rounds, op, dtype, dev, stream
     "ring_allreduce_rd": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, W, op, dtype, dev, stream
+    "ring_reduce_scatter": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, W, dtype, dev, stream
+    "ring_allgather": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, L, root, op, dtype, dev, stream
+    "tree_reduce": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, L, root, dtype, dev, stream
+    "tree_bcast": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
 }
 
 
@@ -273,12 +400,21 @@ def _entry(name: str):
     return fn
 
 
+def _dtype_code(dtype: torch.dtype) -> tuple[int]:
+    if dtype not in _DTYPE_CODES:
+        raise ArgumentError(f"no ring kernel for dtype {dtype}")
+    return (_DTYPE_CODES[dtype],)
+
+
 def _codes(op: Op, dtype: torch.dtype) -> tuple[int, int]:
     if not op.predefined or op.name not in _OP_CODES:
         raise ArgumentError(f"no ring kernel for op {op.name}")
-    if dtype not in _DTYPE_CODES:
-        raise ArgumentError(f"no ring kernel for dtype {dtype}")
-    return _OP_CODES[op.name], _DTYPE_CODES[dtype]
+    return (_OP_CODES[op.name],) + _dtype_code(dtype)
+
+
+def _check_root(root: int, n: int) -> None:
+    if not 0 <= root < n:
+        raise ArgumentError(f"root {root} out of range for {n} ranks")
 
 
 def _stripes(n: int, cols: int, sm_count: int) -> int:
@@ -290,27 +426,28 @@ def _stripes(n: int, cols: int, sm_count: int) -> int:
     return max(1, min(sm_count // n, -(-cols // STRIPE_COLS)))
 
 
-def _launch(name: str, counter: KernelCounter, x: torch.Tensor, op: Op,
-            cols: int, slots: int, nsem: int, scalars: tuple
-            ) -> torch.Tensor:
-    """Launch csrc/<name>.cu on x: each rank is striped over blocks of
-    ``cols`` columns; comm scratch is (n, stripes, slots, stripe width)
-    and the flags (n, stripes, nsem), zeroed here on every launch."""
+def _launch(name: str, counter: KernelCounter, x: torch.Tensor,
+            out_shape: tuple, cols: int, slots: int, nsem: int,
+            scalars: tuple, codes: tuple) -> torch.Tensor:
+    """Launch csrc/<name>.cu on x into a new ``out_shape`` tensor. Each
+    rank is striped over blocks of ``cols`` columns; the comm scratch
+    holds ``slots`` stripe-wide slots per stripe (the kernel lays them
+    out) and the flags are (n, stripes, nsem) int32, zeroed here on
+    every launch. ``codes`` are the op and dtype codes the C entry
+    takes after ``scalars``."""
     cap = require_kernel_device(x)
-    opc, dtc = _codes(op, x.dtype)
     n = x.shape[0]
     stripes = _stripes(n, cols, cap.sm_count)
     sw = -(-cols // stripes)
     x = x.contiguous()
-    out = torch.empty_like(x)
-    comm = torch.empty((n, stripes, slots, sw), dtype=x.dtype,
-                       device=x.device)
+    out = x.new_empty(out_shape)
+    comm = x.new_empty(slots * stripes * sw)
     sems = torch.zeros(n * stripes * nsem, dtype=torch.int32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _entry(name)(x.data_ptr(), out.data_ptr(), comm.data_ptr(),
-                       sems.data_ptr(), n, stripes, *scalars,
-                       opc, dtc, x.device.index or 0, stream)
+                       sems.data_ptr(), n, stripes, *scalars, *codes,
+                       x.device.index or 0, stream)
     if err:
         raise KernelError(f"{name} launch failed: CUDA error {err}")
     counter.launched(sems)
@@ -322,11 +459,11 @@ def ring_allreduce(blocks: torch.Tensor, op) -> torch.Tensor:
     rank's every block holds the combine of that block over all ranks,
     folded in ring order from rank b+1 round to rank b."""
     op = op_lookup(op)
-    C = blocks.shape[2]
+    n, C = _ring_blocks(blocks, True)
     if not blocks.is_cuda:
         return ring_allreduce_plain(blocks, op)
-    return _launch("ring_allreduce", RING, blocks, op, C, 2, RING_NSEM,
-                   (C, C, 1))
+    return _launch("ring_allreduce", RING, blocks, blocks.shape, C, 2 * n,
+                   RING_NSEM, (C, C, 1), _codes(op, blocks.dtype))
 
 
 def ring_allreduce_chunked(blocks: torch.Tensor, op, seg_cols: int
@@ -334,13 +471,14 @@ def ring_allreduce_chunked(blocks: torch.Tensor, op, seg_cols: int
     """The ring of ``ring_allreduce`` over (n, n, W) blocks, streamed in
     segments of ``seg_cols`` columns with a per-segment credit."""
     op = op_lookup(op)
-    W = blocks.shape[2]
+    n, W = _ring_blocks(blocks, True)
     if W % seg_cols:
         raise ArgumentError(f"segment {seg_cols} does not divide {W}")
     if not blocks.is_cuda:
         return ring_allreduce_chunked_plain(blocks, op, seg_cols)
-    return _launch("ring_allreduce_chunked", CHUNKED, blocks, op, seg_cols,
-                   2, RING_NSEM, (W, seg_cols, W // seg_cols))
+    return _launch("ring_allreduce_chunked", CHUNKED, blocks, blocks.shape,
+                   seg_cols, 2 * n, RING_NSEM, (W, seg_cols, W // seg_cols),
+                   _codes(op, blocks.dtype))
 
 
 def ring_allreduce_rd(flat: torch.Tensor, op) -> torch.Tensor:
@@ -354,8 +492,54 @@ def ring_allreduce_rd(flat: torch.Tensor, op) -> torch.Tensor:
     if not flat.is_cuda:
         return ring_allreduce_rd_plain(flat, op)
     rounds = (n - 1).bit_length()
-    return _launch("ring_allreduce_rd", RD, flat, op, L, rounds, rounds,
-                   (L, rounds))
+    return _launch("ring_allreduce_rd", RD, flat, flat.shape, L, n * rounds,
+                   rounds, (L, rounds), _codes(op, flat.dtype))
+
+
+def ring_reduce_scatter(blocks: torch.Tensor, op) -> torch.Tensor:
+    """(n, n, C) per-rank ring blocks -> (n, C): row r is block r
+    combined over all ranks, folded in ring order from rank r+1 round
+    to rank r (the first half of ``ring_allreduce``)."""
+    op = op_lookup(op)
+    n, C = _ring_blocks(blocks, True)
+    if not blocks.is_cuda:
+        return ring_reduce_scatter_plain(blocks, op)
+    return _launch("ring_reduce_scatter", RS, blocks, (n, C), C, 2 * n,
+                   RING_NSEM, (C,), _codes(op, blocks.dtype))
+
+
+def ring_allgather(flat: torch.Tensor) -> torch.Tensor:
+    """(n, C) per-rank blocks -> (n, n, C): every rank's row holds every
+    rank's block, circulated once round the ring."""
+    n, C = _ring_blocks(flat, False)
+    if not flat.is_cuda:
+        return ring_allgather_plain(flat)
+    return _launch("ring_allgather", AG, flat, (n, n, C), C, 2 * n,
+                   RING_NSEM, (C,), _dtype_code(flat.dtype))
+
+
+def tree_reduce(flat: torch.Tensor, op, root: int = 0) -> torch.Tensor:
+    """(n, L) per-rank buffers -> (n, L) whose row ``root`` is their
+    binomial-tree reduction (the other rows: partial accumulators)."""
+    op = op_lookup(op)
+    n, L = flat.shape
+    _check_root(root, n)
+    if not flat.is_cuda:
+        return tree_reduce_plain(flat, op, root)
+    return _launch("tree_reduce", TREE_REDUCE, flat, flat.shape, L, n - 1, 1,
+                   (L, root), _codes(op, flat.dtype))
+
+
+def tree_bcast(flat: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """(n, L) per-rank buffers -> (n, L) with row ``root`` in every row,
+    over a binomial tree."""
+    n, L = flat.shape
+    _check_root(root, n)
+    if not flat.is_cuda:
+        return tree_bcast_plain(flat, root)
+    rounds = (n - 1).bit_length()
+    return _launch("tree_bcast", TREE_BCAST, flat, flat.shape, L, 0,
+                   2 * rounds, (L, root), _dtype_code(flat.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -383,11 +567,26 @@ def _split_ring(b: torch.Tensor):
 
 
 def _unsplit(out: torch.Tensor, pad: int, shape: tuple) -> torch.Tensor:
-    n = out.shape[0]
-    flat = out.reshape(n, -1)
+    return _unpad(out.reshape(out.shape[0], -1), pad, shape)
+
+
+def _pad_chunk(b: torch.Tensor, lead: int = 1):
+    """(lead dims..., ...) -> ((lead dims..., L) zero-padded to a
+    multiple of 128 lanes, pad, trailing shape): ``pallas_ring._pad_chunk``
+    on every rank (lead 1), or the (n, chunk) lane padding of
+    ``ring_reduce_scatter`` on every rank (lead 2)."""
+    flat = b.reshape(tuple(b.shape[:lead]) + (-1,))
+    pad = (-flat.shape[-1]) % LANES
     if pad:
-        flat = flat[:, :flat.shape[1] - pad]
-    return flat.reshape((n,) + shape).contiguous()
+        flat = F.pad(flat, (0, pad))
+    return flat, pad, tuple(b.shape[lead:])
+
+
+def _unpad(out: torch.Tensor, pad: int, shape: tuple) -> torch.Tensor:
+    """Drop ``pad`` lanes from the last axis and give it back ``shape``."""
+    if pad:
+        out = out[..., :out.shape[-1] - pad]
+    return out.reshape(tuple(out.shape[:-1]) + shape).contiguous()
 
 
 def _chunked_layout(size: int, n: int, dtype: torch.dtype,
@@ -418,14 +617,10 @@ def allreduce_block(b: torch.Tensor, op, *, ring=ring_allreduce
 def allreduce_block_rd(b: torch.Tensor, op, *, rd=ring_allreduce_rd
                        ) -> torch.Tensor:
     """Rank-major allreduce by recursive doubling (power-of-two n)."""
-    n = b.shape[0]
-    if n == 1:
+    if b.shape[0] == 1:
         return b
-    flat = b.reshape(n, -1)
-    pad = (-flat.shape[1]) % LANES
-    if pad:
-        flat = F.pad(flat, (0, pad))
-    return _unsplit(rd(flat, op), pad, tuple(b.shape[1:]))
+    flat, pad, shape = _pad_chunk(b)
+    return _unpad(rd(flat, op), pad, shape)
 
 
 def allreduce_block_chunked(b: torch.Tensor, op,
@@ -445,6 +640,56 @@ def allreduce_block_chunked(b: torch.Tensor, op,
         flat = F.pad(flat, (0, pad))
     out = chunked(flat.reshape(n, n, rows * LANES), op, seg_rows * LANES)
     return _unsplit(out, pad, tuple(b.shape[1:]))
+
+
+def allreduce_block_rsag(b: torch.Tensor, op, *, rs=ring_reduce_scatter,
+                         ag=ring_allgather) -> torch.Tensor:
+    """Rank-major allreduce as the standalone reduce-scatter then
+    allgather kernels over ``_split_ring``'s blocks: the same steps and
+    fold order as ``allreduce_block``, so the same bits."""
+    if b.shape[0] == 1:
+        return b
+    blocks, pad, shape = _split_ring(b)
+    return _unsplit(ag(rs(blocks, op)), pad, shape)
+
+
+def reduce_scatter_block(b: torch.Tensor, op, *, rs=ring_reduce_scatter
+                         ) -> torch.Tensor:
+    """Rank-major (n, n, ...) contributions -> (n, ...): row r is block
+    r reduced over all ranks, by the ring reduce-scatter."""
+    if b.shape[0] == 1:
+        return b[:, 0]
+    flat, pad, shape = _pad_chunk(b, lead=2)
+    return _unpad(rs(flat, op), pad, shape)
+
+
+def allgather_block(b: torch.Tensor, *, ag=ring_allgather) -> torch.Tensor:
+    """Rank-major (n, ...) blocks -> (n, n, ...): every rank gets every
+    rank's block, by the ring allgather."""
+    if b.shape[0] == 1:
+        return b[:, None]
+    flat, pad, shape = _pad_chunk(b)
+    return _unpad(ag(flat), pad, shape)
+
+
+def reduce_block(b: torch.Tensor, op, root: int = 0, *, tree=tree_reduce
+                 ) -> torch.Tensor:
+    """Rank-major contributions -> (n, ...) whose row ``root`` is the
+    binomial-tree reduction (the other rows: partial accumulators)."""
+    if b.shape[0] == 1:
+        return b
+    flat, pad, shape = _pad_chunk(b)
+    return _unpad(tree(flat, op, root), pad, shape)
+
+
+def bcast_block(b: torch.Tensor, root: int = 0, *, tree=tree_bcast
+                ) -> torch.Tensor:
+    """Rank-major buffers -> (n, ...) with row ``root`` in every row,
+    over a binomial tree."""
+    if b.shape[0] == 1:
+        return b
+    flat, pad, shape = _pad_chunk(b)
+    return _unpad(tree(flat, root), pad, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -478,3 +723,46 @@ class PallasColl(CollComponent):
         key = ("allreduce", "pallas", body.__name__, op.cache_key,
                tuple(x.shape), str(x.dtype)) + key_extra
         return compile_plan(comm, key, fn)(x)
+
+    def reduce(self, comm, x, op, root):
+        """Binomial-tree reduce; returns root's block."""
+        op = op_lookup(op)
+        x = rank_major_check(comm, x)
+        if comm.size == 1:
+            return x[0]
+        if not op.commutative:
+            # The tree folds out of rank order: the rank-ordered oracle
+            # takes non-commutative ops, as in the JAX package.
+            return COLL.component("basic").reduce(comm, x, op, root)
+        key = ("reduce", "pallas", "tree", op.cache_key, root,
+               tuple(x.shape), str(x.dtype))
+        return compile_plan(
+            comm, key, lambda b: reduce_block(b, op, root))(x)[root]
+
+    def bcast(self, comm, x, root):
+        x = rank_major_check(comm, x)
+        if comm.size == 1:
+            return x
+        key = ("bcast", "pallas", root, tuple(x.shape), str(x.dtype))
+        return compile_plan(comm, key, lambda b: bcast_block(b, root))(x)
+
+    def allgather(self, comm, x):
+        x = rank_major_check(comm, x)
+        if comm.size == 1:
+            return x[:, None]
+        key = ("allgather", "pallas", tuple(x.shape), str(x.dtype))
+        return compile_plan(comm, key, allgather_block)(x)
+
+    def reduce_scatter_block(self, comm, x, op):
+        op = op_lookup(op)
+        x = rank_major_check(comm, x, min_ndim=2)
+        if x.shape[1] != comm.size:
+            raise ArgumentError(
+                f"reduce_scatter_block needs (size, size, ...) buffer, got "
+                f"{tuple(x.shape)}")
+        if comm.size == 1:
+            return x[:, 0]
+        key = ("reduce_scatter_block", "pallas", op.cache_key,
+               tuple(x.shape), str(x.dtype))
+        return compile_plan(
+            comm, key, lambda b: reduce_scatter_block(b, op))(x)

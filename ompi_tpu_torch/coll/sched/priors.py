@@ -1,5 +1,6 @@
 """Cold-start priors: the static algorithm tables (port of
-``ompi_tpu/coll/sched/priors.py``, allreduce only).
+``ompi_tpu/coll/sched/priors.py``: allreduce, bcast, reduce, allgather
+and reduce_scatter).
 
 Every ``nbytes`` parameter is BYTES PER RANK (the block size of the
 rank-major payload). The quantized-wire tier is not ported yet, so its
@@ -13,13 +14,20 @@ from typing import Optional
 from ...ops import Op
 
 
+def _t():
+    # tuned registers the cvars and imports this module lazily from its
+    # decide_* bodies, so by first call the module object exists.
+    from .. import tuned
+
+    return tuned
+
+
 def prior_allreduce(op: Op, nbytes: int, nranks: int, dtype=None,
                     allow_quant: Optional[bool] = None) -> str:
     """Reference regime: recursive doubling < 10 KB/rank, ring to
     1 MiB/rank, segmented ring above — with the native preference ahead
     of all three."""
-    from .. import tuned as t
-
+    t = _t()
     if t._prefer_native.value and op.native_reduce is not None:
         return "native"
     if nbytes < t._small.value:
@@ -27,3 +35,52 @@ def prior_allreduce(op: Op, nbytes: int, nranks: int, dtype=None,
     if nbytes <= t._ring_limit.value:
         return "ring"
     return "ring_segmented"
+
+
+def prior_allgather(nbytes: int, nranks: int) -> str:
+    return "native"
+
+
+def prior_bcast(nbytes: int, nranks: int) -> str:
+    """Reference regime (coll_tuned_decision_fixed.c:250-310): binomial
+    small, binary tree mid-size, segmented pipeline for bulk; native
+    wins when preferred."""
+    t = _t()
+    if t._prefer_native.value:
+        return "native"
+    if nbytes < t._small.value:
+        return "binomial"
+    if nbytes < t._large.value:
+        return "binary"
+    return "pipelined"
+
+
+def prior_reduce(op: Op, nbytes: int, nranks: int) -> str:
+    """Reference: binomial small, pipelined chains above; the ordered
+    native path for non-commutative ops."""
+    t = _t()
+    if not op.commutative or op.joint:
+        return "native"  # ordered handling lives in the algo fallback
+    if t._prefer_native.value and op.native_reduce is not None:
+        return "native"
+    if nbytes < t._small.value:
+        return "binomial"
+    if nbytes >= t._large.value:
+        return "pipelined"
+    return "native"
+
+
+def prior_reduce_scatter(op: Op, nbytes: int, nranks: int) -> str:
+    """Reference: recursive halving for small commutative power-of-two
+    cases, ring for large."""
+    t = _t()
+    if not op.commutative or op.joint:
+        # ring/halving accumulate out of rank order; the native path's
+        # ordered reduction is the only correct one
+        return "native"
+    if t._prefer_native.value and op.native_reduce is not None:
+        return "native"
+    pof2 = nranks & (nranks - 1) == 0
+    if pof2 and nbytes < t._small.value:
+        return "recursive_halving"
+    return "ring"

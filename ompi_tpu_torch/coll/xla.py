@@ -3,9 +3,9 @@
 
 It keeps the component name ``xla`` so selection vars
 (``coll_xla_priority``, ``coll_select``) mean the same thing in both
-packages. Its allreduce is PyTorch's own reduction over the rank axis
-(``spmd.allreduce_native``): the JAX package leaves this path to XLA
-and has no Pallas kernel on it.
+packages. Its collectives are PyTorch's own operations over the rank
+axis (``spmd.*_native``): the JAX package leaves this path to XLA and
+has no Pallas kernel on it.
 """
 
 from __future__ import annotations
@@ -38,12 +38,57 @@ class XlaColl(CollComponent):
     PRIORITY = 40
     DESCRIPTION = "native collectives (torch reductions over the rank axis)"
 
+    def _allreduce_plan(self, comm, x, op):
+        key = ("allreduce", "native", op.cache_key, _dtype_key(x))
+        return compile_plan(
+            comm, key, lambda b: spmd.allreduce_native(b, op))
+
     def allreduce(self, comm, x, op):
         op = op_lookup(op)
         x = _leaf_check(comm, x)
         if comm.size == 1:
             return x
-        key = ("allreduce", "native", op.cache_key, _dtype_key(x))
+        return self._allreduce_plan(comm, x, op)(x)
+
+    def bcast(self, comm, x, root):
+        x = _leaf_check(comm, x)
+        if comm.size == 1:
+            return x
+        key = ("bcast", "native", root, _dtype_key(x))
+        plan = compile_plan(comm, key,
+                            lambda b: spmd.bcast_native(b, root=root))
+        return plan(x)
+
+    def reduce(self, comm, x, op, root):
+        op = op_lookup(op)
+        x = _leaf_check(comm, x)
+        if comm.size == 1:
+            out = x
+        else:
+            # The allreduce's plan (root reads its row): same cache entry.
+            out = self._allreduce_plan(comm, x, op)(x)
+        if isinstance(out, (tuple, list)):
+            return type(out)(leaf[root] for leaf in out)
+        return out[root]
+
+    def allgather(self, comm, x):
+        x = rank_major_check(comm, x)
+        if comm.size == 1:
+            return x[:, None]
+        key = ("allgather", "native", tuple(x.shape), str(x.dtype))
+        return compile_plan(comm, key, spmd.allgather_native)(x)
+
+    def reduce_scatter_block(self, comm, x, op):
+        op = op_lookup(op)
+        x = rank_major_check(comm, x, min_ndim=2)
+        if x.shape[1] != comm.size:
+            raise ArgumentError(
+                f"reduce_scatter_block needs (size, size, ...) buffer, got "
+                f"{tuple(x.shape)}")
+        if comm.size == 1:
+            return x[:, 0]
+        key = ("reduce_scatter_block", "native", op.cache_key,
+               tuple(x.shape), str(x.dtype))
         plan = compile_plan(
-            comm, key, lambda b: spmd.allreduce_native(b, op))
+            comm, key, lambda b: spmd.reduce_scatter_native(b, op))
         return plan(x)

@@ -1,9 +1,10 @@
 """Communicators: groups of ranks with collective capability.
 
-Port of ``ompi_tpu/communicator.py`` (this slice: construction, the
-per-communicator coll vtable, ``allreduce``, ``dup``, ``split``, the
-plan cache, the cid counter and ``_check_alive``; epochs and revocation
-come with the fault-tolerance slice).
+Port of ``ompi_tpu/communicator.py`` (so far: construction, the
+per-communicator coll vtable, ``allreduce``, ``bcast``, ``reduce``,
+``allgather``, ``reduce_scatter_block``, ``check_rank``, ``dup``,
+``split``, the plan cache, the cid counter and ``_check_alive``; epochs
+and revocation come with the fault-tolerance slice).
 
 Buffer convention ("rank-major"): a collective argument is
 a contiguous ``(size, ...)`` tensor on the communicator's device whose
@@ -21,7 +22,7 @@ from typing import Any, Optional, Sequence
 import torch
 
 from .core.counters import SPC
-from .core.errors import ArgumentError, CommError
+from .core.errors import ArgumentError, CommError, RankError
 from .group import Group
 
 _cid_counter = itertools.count(0)
@@ -80,6 +81,13 @@ class Communicator:
             )
         return arr.to(self.device).contiguous()
 
+    def check_rank(self, rank: int) -> int:
+        if not 0 <= rank < self.size:
+            raise RankError(
+                f"rank {rank} out of range for {self.name} (size {self.size})"
+            )
+        return rank
+
     def _check_alive(self) -> None:
         if self._freed:
             raise CommError(f"{self.name} has been freed")
@@ -99,6 +107,18 @@ class Communicator:
 
     def allreduce(self, x, op="sum"):
         return self._coll_call("allreduce", x, op)
+
+    def bcast(self, x, root: int = 0):
+        return self._coll_call("bcast", x, self.check_rank(root))
+
+    def reduce(self, x, op="sum", root: int = 0):
+        return self._coll_call("reduce", x, op, self.check_rank(root))
+
+    def allgather(self, x):
+        return self._coll_call("allgather", x)
+
+    def reduce_scatter_block(self, x, op="sum"):
+        return self._coll_call("reduce_scatter_block", x, op)
 
     # -- construction of derived communicators ----------------------------
 

@@ -24,8 +24,8 @@ __global__ void __launch_bounds__(kThreads)
     ring_allreduce_kernel(const T* __restrict__ x, T* __restrict__ out,
                           T* comm, int* sems, int n, int stripes,
                           long long W, long long seg, int n_segs) {
-  ring_schedule<T, OP, false>(x, out, comm, sems, n, stripes, W, seg,
-                              n_segs);
+  ring_schedule<T, OP, false, PH_BOTH>(x, out, comm, sems, n, stripes, W,
+                                       seg, n_segs);
 }
 
 }  // namespace ompi_ring
@@ -38,15 +38,9 @@ extern "C" int ompi_ring_allreduce(const void* x, void* out, void* comm,
                                    long long W, long long seg, int n_segs,
                                    int op, int dtype, int device,
                                    void* stream) {
-  const void* fn = OMPI_RING_PICK(ompi_ring::ring_allreduce_kernel)(op, dtype);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&x, &out, &comm, &sems, &n, &stripes,
                   &W, &seg, &n_segs};
-  err = cudaLaunchCooperativeKernel(fn, dim3(n * stripes),
-                                    dim3(ompi_ring::kThreads), args, 0,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return ompi_ring::launch_cooperative(
+      OMPI_RING_PICK(ompi_ring::ring_allreduce_kernel)(op, dtype),
+      n * stripes, args, device, stream);
 }

@@ -26,8 +26,8 @@ __global__ void __launch_bounds__(kThreads)
                                   T* __restrict__ out, T* comm, int* sems,
                                   int n, int stripes, long long W,
                                   long long seg, int n_segs) {
-  ring_schedule<T, OP, true>(x, out, comm, sems, n, stripes, W, seg,
-                             n_segs);
+  ring_schedule<T, OP, true, PH_BOTH>(x, out, comm, sems, n, stripes, W,
+                                      seg, n_segs);
 }
 
 }  // namespace ompi_ring
@@ -41,16 +41,9 @@ extern "C" int ompi_ring_allreduce_chunked(const void* x, void* out,
                                            long long seg, int n_segs,
                                            int op, int dtype, int device,
                                            void* stream) {
-  const void* fn =
-      OMPI_RING_PICK(ompi_ring::ring_allreduce_chunked_kernel)(op, dtype);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&x, &out, &comm, &sems, &n, &stripes,
                   &W, &seg, &n_segs};
-  err = cudaLaunchCooperativeKernel(fn, dim3(n * stripes),
-                                    dim3(ompi_ring::kThreads), args, 0,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return ompi_ring::launch_cooperative(
+      OMPI_RING_PICK(ompi_ring::ring_allreduce_chunked_kernel)(op, dtype),
+      n * stripes, args, device, stream);
 }

@@ -60,16 +60,9 @@ extern "C" int ompi_ring_allreduce_rd(const void* x, void* out, void* comm,
                                       void* sems, int n, int stripes,
                                       long long L, int rounds, int op,
                                       int dtype, int device, void* stream) {
-  const void* fn =
-      OMPI_RING_PICK(ompi_ring::ring_allreduce_rd_kernel)(op, dtype);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&x, &out, &comm, &sems, &n, &stripes, &L,
                   &rounds};
-  err = cudaLaunchCooperativeKernel(fn, dim3(n * stripes),
-                                    dim3(ompi_ring::kThreads), args, 0,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return ompi_ring::launch_cooperative(
+      OMPI_RING_PICK(ompi_ring::ring_allreduce_rd_kernel)(op, dtype),
+      n * stripes, args, device, stream);
 }

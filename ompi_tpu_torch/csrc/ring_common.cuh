@@ -1,6 +1,7 @@
-// Shared pieces of the ring allreduce kernels: the combine ops, the
-// flag primitives that stand for the Pallas semaphores, L1-bypassing
-// loads/stores for comm slots, and the ring schedule itself.
+// Shared pieces of the collective kernels: the combine ops, the flag
+// primitives that stand for the Pallas semaphores, L1-bypassing
+// loads/stores for comm slots, the ring schedule (reduce-scatter,
+// allgather or both) and the cooperative launch.
 //
 // Ranks on one card. A rank-major buffer holds n virtual ranks in one
 // HBM; each rank is played by its own thread blocks (one per column
@@ -142,23 +143,32 @@ __device__ __forceinline__ void wait(int* flag, int v) {
 // Flag slots per (rank, stripe).
 enum RingFlag { F_RECV = 0, F_CAP = 2, F_SEG = 4, RING_NSEM = 5 };
 
+// Which halves of the ring a schedule runs: n-1 reduce-scatter steps,
+// n-1 allgather steps, or both (the allreduce).
+enum RingPhase { PH_RS = 1, PH_AG = 2, PH_BOTH = 3 };
+
 // Block (r, s) of the grid plays rank r on column stripe s of every ring
-// block. x/out are rank-major (n ranks, n blocks, W columns); comm is
-// (n, stripes, 2, sw); sems is (n, stripes, RING_NSEM). The ring runs
+// block of W columns. Rank-major layouts: x is (n ranks, n blocks, W)
+// and out the same for PH_BOTH; PH_RS writes out (n, W), each rank's
+// own reduced block; PH_AG reads x (n, W), each rank's own block. comm
+// is (n, stripes, 2, sw); sems is (n, stripes, RING_NSEM). The ring runs
 // segment by segment over `seg` columns; with SEGMENTED a per-segment
 // credit keeps a rank from starting segment i+1 into its right
 // neighbour's slots before that neighbour has drained segment i.
 //
 // Credits: a rank credits slot `slot` to its left neighbour right after
-// the send FROM that slot (steps 0..2n-4), not after filling it as the
-// reference does; the left neighbour spends the credit writing that slot
-// one step later. There is no post-seed credit.
-template <typename T, int OP, bool SEGMENTED>
+// the send FROM that slot (every step but the last), not after filling
+// it as the reference does; the left neighbour spends the credit writing
+// that slot one step later. There is no post-seed credit, so a
+// two-rank PH_RS or PH_AG ring (one step) has no credit at all.
+template <typename T, int OP, bool SEGMENTED, int PHASE>
 __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
                                               T* __restrict__ out, T* comm,
                                               int* sems, int n, int stripes,
                                               long long W, long long seg,
                                               int n_segs) {
+  constexpr bool kRS = (PHASE & PH_RS) != 0;
+  constexpr bool kAG = (PHASE & PH_AG) != 0;
   const int r = blockIdx.x / stripes;
   const int s = blockIdx.x % stripes;
   const int left = (r + n - 1) % n;
@@ -166,24 +176,32 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
   const long long sw = (seg + stripes - 1) / stripes;
   const long long c0 = (long long)s * sw;
   const long long cw = c0 < seg ? (seg - c0 < sw ? seg - c0 : sw) : 0;
-  const int nsteps = 2 * (n - 1);
+  const int rs_steps = kRS ? n - 1 : 0;
+  const int nsteps = rs_steps + (kAG ? n - 1 : 0);
 
   T* my_comm = comm + ((long long)r * stripes + s) * 2 * sw;
   T* right_comm = comm + ((long long)right * stripes + s) * 2 * sw;
   int* my_sem = sems + (r * stripes + s) * RING_NSEM;
   int* left_sem = sems + (left * stripes + s) * RING_NSEM;
   int* right_sem = sems + (right * stripes + s) * RING_NSEM;
-  const T* xr = x + (long long)r * n * W;
-  T* outr = out + (long long)r * n * W;
+  const T* xr = x + (long long)r * (kRS ? n : 1) * W;
+  T* outr = out + (long long)r * (kAG ? n : 1) * W;
+  // This rank's own finished block: row r of the PH_RS output, block r
+  // of its row otherwise.
+  T* own = kAG ? outr + (long long)r * W : outr;
 
   if (SEGMENTED && threadIdx.x == 0) signal(left_sem + F_SEG, 1);  // prime
   for (int si = 0; si < n_segs; ++si) {
     const long long off = (long long)si * seg + c0;
     if (SEGMENTED) wait(my_sem + F_SEG, 1);
-    // Seed: slot 0 holds this rank's partial of block (r - 1).
-    const T* seed = xr + (long long)left * W + off;
-    for (long long j = threadIdx.x; j < cw; j += blockDim.x)
-      st_cg(my_comm + j, seed[j]);
+    // Seed: slot 0 holds this rank's partial of block (r - 1), or, for
+    // an allgather alone, its own block, which is also its output.
+    const T* seed = kRS ? xr + (long long)left * W + off : xr + off;
+    for (long long j = threadIdx.x; j < cw; j += blockDim.x) {
+      const T v = seed[j];
+      st_cg(my_comm + j, v);
+      if (!kRS) own[off + j] = v;
+    }
     for (int step = 0; step < nsteps; ++step) {
       const int slot = step & 1, nslot = slot ^ 1;
       if (step >= 1) wait(my_sem + F_CAP + nslot, 1);
@@ -199,20 +217,22 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
       }
       wait(my_sem + F_RECV + nslot, 1);
       T* arrived = my_comm + nslot * sw;
-      if (step < n - 1) {
+      if (step < rs_steps) {
         // Reduce-scatter: fold this rank's block into the arrival.
         const int blk = (r - step - 2 + 2 * n) % n;
         const T* xb = xr + (long long)blk * W + off;
-        T* ob = outr + (long long)blk * W + off;
-        const bool last = step == n - 2;  // blk == r: first finished block
+        T* ob = own + off;
+        const bool last = step == n - 2;  // blk == r: own block finished
+        // After the last fold only an allgather still sends the slot.
+        const bool keep = kAG || !last;
         for (long long j = threadIdx.x; j < cw; j += blockDim.x) {
           const T v = Combine<T, OP>::apply(ld_cg(arrived + j), xb[j]);
-          st_cg(arrived + j, v);
+          if (keep) st_cg(arrived + j, v);
           if (last) ob[j] = v;
         }
       } else {
         // Allgather: store the finished block that arrived.
-        const int blk = (r - (step - (n - 1)) - 1 + 2 * n) % n;
+        const int blk = (r - (step - rs_steps) - 1 + 2 * n) % n;
         T* ob = outr + (long long)blk * W + off;
         for (long long j = threadIdx.x; j < cw; j += blockDim.x)
           ob[j] = ld_cg(arrived + j);
@@ -227,7 +247,34 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
   if (SEGMENTED) wait(my_sem + F_SEG, 1);  // residual credit
 }
 
+// Cooperative launch of `blocks` blocks of kThreads on `stream`: every
+// block resident, or the launch fails. Returns the CUDA error (0 on
+// success); a null kernel (unknown op or dtype code) is an invalid value.
+inline int launch_cooperative(const void* fn, int blocks, void** args,
+                              int device, void* stream) {
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
+                                    0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace ompi_ring
+
+// Instantiate KERNEL<T> for the dtype code (kernels that only move data)
+// and return it as a launchable pointer (nullptr for an unknown code).
+#define OMPI_DTYPE_PICK(KERNEL)                                       \
+  [](int dt) -> const void* {                                         \
+    using namespace ompi_ring;                                        \
+    switch (dt) {                                                     \
+      case DT_F32: return (const void*)KERNEL<float>;                 \
+      case DT_BF16: return (const void*)KERNEL<__nv_bfloat16>;        \
+      case DT_I32: return (const void*)KERNEL<int>;                   \
+      default: return nullptr;                                        \
+    }                                                                 \
+  }
 
 // Instantiate KERNEL<T, OP> for the (op, dtype) codes and return it as a
 // launchable pointer (nullptr for an unknown pair).

@@ -1,14 +1,18 @@
-"""The port's CUDA kernels on a card, each against its plain version.
+"""The port's seven CUDA kernels on a card, each against its plain
+version: ring_allreduce, ring_allreduce_rd, ring_allreduce_chunked,
+ring_reduce_scatter, ring_allgather, tree_reduce and tree_bcast.
 
 Marked ``gpu``: without a CUDA card every test here skips with a reason
 (the kernels have no CPU mode; their plain versions are tested on the
-CPU in test_torch_pallas_ring.py). This file imports neither JAX nor the
-JAX package, so it also runs where only PyTorch is installed:
+CPU in test_torch_pallas_ring.py and test_torch_colls.py). This file
+imports neither JAX nor the JAX package, so it also runs where only
+PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tolerance: bitwise. The kernels run the same schedule as the plain
-versions, combining in the same order.
+versions, combining in the same order. Each launch adds exactly one to
+its kernel's count and leaves every flag at 0.
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ from ompi_tpu_torch.core.errors import ArgumentError
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
        "int32": torch.int32}
+OPS = ("sum", "max", "min", "prod")
 
 
 @pytest.fixture
@@ -68,6 +73,51 @@ def test_kernel_matches_plain_on_card(cuda, tier, n, dtype):
         assert torch.equal(_bits(got), _bits(want)), (tier, n, dtype, op)
 
 
+def _launched_once(counter, run):
+    """run() on the card: one launch of the counter's kernel, flags 0."""
+    before = counter.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1, counter.name
+    assert int(counter.last_sems.abs().sum()) == 0, counter.name
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_ring_halves_match_plain_on_card(cuda, n, dtype):
+    x = _input(n, n * 700, dtype, cuda).reshape(n, n, 700)  # ragged lanes
+    for op in OPS:
+        got = _launched_once(pr.RS, lambda: pr.reduce_scatter_block(x, op))
+        want = pr.reduce_scatter_block(x, op, rs=pr.ring_reduce_scatter_plain)
+        assert torch.equal(_bits(got), _bits(want)), (n, dtype, op)
+    own = x[:, 0]
+    got = _launched_once(pr.AG, lambda: pr.allgather_block(own))
+    want = pr.allgather_block(own, ag=pr.ring_allgather_plain)
+    assert torch.equal(_bits(got), _bits(want)) and torch.equal(got[n - 1], own)
+    flat = x.reshape(n, -1)
+    for op in OPS:
+        # the two halves fold every element in the ring's order
+        assert torch.equal(_bits(pr.allreduce_block_rsag(flat, op)),
+                           _bits(pr.allreduce_block(flat, op))), (n, op)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_trees_match_plain_on_card(cuda, n, dtype):
+    x = _input(n, 5000, dtype, cuda)
+    for root in (0, n - 1):
+        for op in OPS:
+            got = _launched_once(pr.TREE_REDUCE,
+                                 lambda: pr.reduce_block(x, op, root))
+            want = pr.reduce_block(x, op, root, tree=pr.tree_reduce_plain)
+            assert torch.equal(_bits(got), _bits(want)), (n, dtype, op, root)
+        got = _launched_once(pr.TREE_BCAST, lambda: pr.bcast_block(x, root))
+        assert torch.equal(_bits(got), _bits(x[root].expand_as(x)))
+
+
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.ones(2, 2, 128, dtype=torch.float16, device=cuda)
@@ -75,3 +125,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         pr.ring_allreduce(x, "sum")  # no float16 kernel, and no fallback
     with pytest.raises(ArgumentError):
         pr.ring_allreduce(x.float(), "land")
+    with pytest.raises(ArgumentError):
+        pr.ring_allgather(x[:, 0])
+    with pytest.raises(ArgumentError):
+        pr.tree_bcast(x[:, 0].float(), root=2)

@@ -12,7 +12,8 @@ against the JAX package's Pallas kernels and a numpy ring-order oracle.
   float32/bfloat16/int32 on the port's simulators against a numpy
   oracle that folds each block in ring order (bfloat16 through
   ml_dtypes, which also computes in float32 and rounds once). Exact.
-- Interleavings: the ring and chunked simulators under 200 seeded random
+- Interleavings: the ring and chunked simulators, and the ring's two
+  halves (reduce-scatter and allgather alone), under 200 seeded random
   schedules at n in {3, 4, 8} must give the lock-step result exactly
   with every flag back at 0; the reference's credit placement in the
   same simulator must fail (the negative control).
@@ -226,15 +227,22 @@ def test_layouts_match_the_jax_blocking():
 # ---------------------------------------------------------------------------
 
 def _ring_case(kernel, n):
+    """(input, simulate_ring keywords) of a ring kernel: the allreduce
+    ring, its chunked form, or one of its halves (reduce-scatter,
+    allgather)."""
     blocks = torch.from_numpy(np.random.default_rng(n).standard_normal(
         (n, n, 256)).astype(np.float32))
     if kernel == "ring":
         return blocks, dict(seg_cols=None, segmented=False)
+    if kernel == "rs":
+        return blocks, dict(phase="rs")
+    if kernel == "ag":
+        return blocks[:, 0].contiguous(), dict(phase="ag")
     return blocks, dict(seg_cols=128, segmented=True)  # two segments
 
 
 @pytest.mark.parametrize("n", [3, 4, 8])
-@pytest.mark.parametrize("kernel", ["ring", "chunked"])
+@pytest.mark.parametrize("kernel", ["ring", "chunked", "rs", "ag"])
 def test_port_protocol_exact_under_random_interleavings(kernel, n):
     blocks, kw = _ring_case(kernel, n)
     op = lookup("sum")
@@ -248,11 +256,13 @@ def test_port_protocol_exact_under_random_interleavings(kernel, n):
 
 
 @pytest.mark.parametrize("n", [3, 4, 8])
-@pytest.mark.parametrize("kernel", ["ring", "chunked"])
+@pytest.mark.parametrize("kernel", ["ring", "chunked", "rs", "ag"])
 def test_reference_credit_placement_fails_under_interleavings(kernel, n):
     """Negative control: the JAX package's credit placement
-    (pallas_ring.py:263-267, :387-391) in the same simulator loses a
-    partial under some schedule — the interleaver has teeth."""
+    (pallas_ring.py:263-267, :387-391; in the halves a post-seed credit,
+    :135-137 and :184-186, then :159-164 and :208-214) in the same
+    simulator loses a partial under some schedule — the interleaver has
+    teeth."""
     blocks, kw = _ring_case(kernel, n)
     op = lookup("sum")
     want, _ = pr.simulate_ring(blocks, op, **kw)
