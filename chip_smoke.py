@@ -6,10 +6,11 @@ CUDA card, ``nvcc`` and the repository's ``ompi_tpu_torch`` package;
 without a card, or without the package beside it, it exits non-zero
 and prints no result.
 
-The seven kernels (``ompi_tpu_torch/csrc/``): ``ring_allreduce``,
+The eleven kernels (``ompi_tpu_torch/csrc/``): ``ring_allreduce``,
 ``ring_allreduce_rd``, ``ring_allreduce_chunked``,
-``ring_reduce_scatter``, ``ring_allgather``, ``tree_reduce`` and
-``tree_bcast``.
+``ring_reduce_scatter``, ``ring_allgather``, ``tree_reduce``,
+``tree_bcast``, ``ring_allreduce_bidir``, ``ring_alltoall``,
+``linear_gather`` and ``linear_scatter``.
 
 Phases (any failure raises and exits non-zero):
 
@@ -20,9 +21,12 @@ Phases (any failure raises and exits non-zero):
    the card, bitwise, at small and ragged sizes, every flag back at 0:
    the allreduce kernels for int32/float32/bfloat16 x
    sum/max/min/prod (ring and chunked at n in {2, 3, 8}, recursive
-   doubling at n in {2, 8}); reduce-scatter and tree reduce likewise at
-   n in {2, 3, 8} (the trees at roots 0 and n-1); allgather and tree
-   bcast for the three dtypes.
+   doubling at n in {2, 8}, the bidirectional ring at n in {2, 3, 8});
+   reduce-scatter and tree reduce likewise at n in {2, 3, 8} (the trees
+   at roots 0 and n-1); allgather, tree bcast, alltoall, gather and
+   scatter for the three dtypes (gather, scatter and bcast at roots 0
+   and n-1), and the three data movers for float64, float16 and int8
+   at odd row widths (their element-sized copies).
 3. The main path at full width, n = 8, through ``init(nranks=8)`` and
    two vtable routes: a ``world.dup()`` with
    ``coll_pallas_priority=100`` (PallasColl) and one with TunedColl and
@@ -40,7 +44,19 @@ Phases (any failure raises and exits non-zero):
      reduction PyTorch computes on its own (row copies, ``amax``,
      ``sum`` to 1e-5);
    - ``comm.allreduce`` with ``pallas_rsag`` (reduce-scatter then
-     allgather) at 1 MiB per rank, bitwise equal to ``pallas_ring``.
+     allgather) at 1 MiB per rank, bitwise equal to ``pallas_ring``;
+   - ``comm.allreduce(x, "sum")`` over the bidirectional ring, float32,
+     1 MiB per rank: ``coll_pallas_bidir=1`` on PallasColl and
+     ``pallas_bidir`` on TunedColl, checked against ``x.sum(0)`` to
+     1e-5;
+   - ``comm.alltoall``, float32, ``(8, 8, 32 Mi)`` elements (1 GiB sent
+     per rank), ``comm.gather``, float32, 1 GiB per rank, root 3, and
+     ``comm.scatter``, float32, root 5, root's buffer ``(8, 256 Mi)``;
+     each also at 4 KiB per rank. TunedColl forces ``pallas_linear`` for
+     gather and scatter; its alltoall takes the default route (the spmd
+     pairwise exchange at 128 MiB per destination, no kernel), checked
+     equal to the kernel's result. Each result is also checked against
+     ``x.transpose(0, 1)``, ``x`` and root's buffer.
    Each case frees its input, output and plain result before the next;
    ``max_memory_allocated`` is printed.
 4. A ``kernels`` JSON line, one row per kernel at its main-path size:
@@ -49,8 +65,9 @@ Phases (any failure raises and exits non-zero):
    plain version's time, the bytes bound over 3.35 TB/s (each input
    byte read once, each output byte written once) and the time of one
    PyTorch call computing the same function as a library yardstick the
-   port never calls. The four kernels of the rooted and half-ring
-   collectives also carry their p50 at 4 KiB per rank (``small_ms``).
+   port never calls. The kernels of the rooted, half-ring and
+   data-movement collectives also carry their p50 at 4 KiB per rank
+   (``small_ms``).
 5. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -86,8 +103,17 @@ COLL_CASES = {
                             "pallas_ring"),
     "ring_allgather": ("coll_tuned_allgather_algorithm", "pallas_ring"),
 }
+# Kernel of a data-movement collective -> the tuned var forcing it (none:
+# the alltoall kernel has no tuned name, tuned's default route runs).
+MOVE_CASES = {
+    "ring_alltoall": None,
+    "linear_gather": ("coll_tuned_gather_algorithm", "pallas_linear"),
+    "linear_scatter": ("coll_tuned_scatter_algorithm", "pallas_linear"),
+}
 COLL_SIZES = (GIB, 4 * KIB)  # main path, then the latency regime
 BCAST_ROOT, REDUCE_ROOT = 3, 5
+GATHER_ROOT, SCATTER_ROOT = 3, 5
+BIDIR_BYTES = MIB
 SOURCES = {
     "ring_allreduce": "ompi_tpu/coll/pallas_ring.py:219",
     "ring_allreduce_rd": "ompi_tpu/coll/pallas_ring.py:708",
@@ -96,6 +122,10 @@ SOURCES = {
     "ring_allgather": "ompi_tpu/coll/pallas_ring.py:122",
     "tree_reduce": "ompi_tpu/coll/pallas_ring.py:784",
     "tree_bcast": "ompi_tpu/coll/pallas_ring.py:859",
+    "ring_allreduce_bidir": "ompi_tpu/coll/pallas_ring.py:645",
+    "ring_alltoall": "ompi_tpu/coll/pallas_ring.py:983",
+    "linear_gather": "ompi_tpu/coll/pallas_ring.py:1042",
+    "linear_scatter": "ompi_tpu/coll/pallas_ring.py:1122",
 }
 
 
@@ -106,8 +136,10 @@ def log(msg: str) -> None:
 def bits(t):
     import torch
 
-    return t.view({torch.bfloat16: torch.int16}.get(t.dtype, torch.int32)) \
-        if t.is_floating_point() else t
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
 
 
 def max_abs_err(a, b) -> float:
@@ -125,9 +157,9 @@ def max_abs_err(a, b) -> float:
 def random_rank_major(shape, dtype, gen):
     import torch
 
-    if dtype == torch.int32:
-        return torch.randint(-1000, 1000, shape, generator=gen,
-                             device="cuda", dtype=torch.int32)
+    if not dtype.is_floating_point:
+        return torch.randint(-100, 100, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(dtype)
     return torch.randn(shape, generator=gen, device="cuda",
                        dtype=torch.float32).to(dtype)
 
@@ -185,15 +217,31 @@ def kernel_vs_plain(pr, gen) -> None:
         ("tree_bcast", (2, 3, 8), lambda n, e: (n, e),
          lambda x, op, root, plain: pr.bcast_block(
              x, root, **plain_kw(plain, "tree", pr.tree_bcast_plain))),
+        ("ring_allreduce_bidir", (2, 3, 8), lambda n, e: (n, e),
+         lambda x, op, root, plain: pr.allreduce_block_bidir(
+             x, op, **plain_kw(plain, "bidir",
+                               pr.ring_allreduce_bidir_plain))),
+        ("ring_alltoall", (2, 3, 8), lambda n, e: (n, n, e),
+         lambda x, op, root, plain: pr.alltoall_block(
+             x, **plain_kw(plain, "a2a", pr.ring_alltoall_plain))),
+        ("linear_gather", (2, 3, 8), lambda n, e: (n, e),
+         lambda x, op, root, plain: pr.gather_block(
+             x, root, **plain_kw(plain, "gather", pr.linear_gather_plain))),
+        ("linear_scatter", (2, 3, 8), lambda n, e: (n, e),
+         lambda x, op, root, plain: pr.scatter_block(
+             x, root, **plain_kw(plain, "scatter",
+                                 pr.linear_scatter_plain))),
     ]
     from ompi_tpu_torch.core.counters import KERNELS
 
+    rooted = ("tree_reduce", "tree_bcast", "linear_gather", "linear_scatter")
     for name, ns, shape_of, fn in cases:
         t0 = time.time()
         checked = 0
-        reduces = name not in ("ring_allgather", "tree_bcast")
+        reduces = name not in ("ring_allgather", "tree_bcast") + tuple(
+            MOVE_CASES)
         for n in ns:
-            roots = (0, n - 1) if name.startswith("tree") else (0,)
+            roots = (0, n - 1) if name in rooted else (0,)
             for dtype in (torch.int32, torch.float32, torch.bfloat16):
                 for op in ("sum", "max", "min", "prod") if reduces else (None,):
                     for elems in (sizes if name in MAIN_SIZES
@@ -210,6 +258,35 @@ def kernel_vs_plain(pr, gen) -> None:
                             checked += 1
         log(f"[kernel-vs-plain] {name}: {checked} cases bitwise equal, "
             f"all semaphores 0 ({time.time() - t0:.1f} s)")
+
+    # The data movers copy bytes: other element sizes, at odd row widths
+    # (no lane padding: the wrappers directly), take the element-sized
+    # copies instead of the 16-byte vectors.
+    t0 = time.time()
+    checked = 0
+    for dtype in (torch.float64, torch.float16, torch.int8):
+        for n, elems in ((3, 33), (8, 1001)):
+            x = random_rank_major((n, n, elems), dtype, gen)
+            flat = x[:, 0].contiguous()
+            movers = [
+                ("ring_alltoall", lambda p: (pr.ring_alltoall_plain if p
+                                             else pr.ring_alltoall)(x)),
+                ("linear_gather", lambda p: (pr.linear_gather_plain if p
+                                             else pr.linear_gather)(
+                                                 flat, n - 1)),
+                ("linear_scatter", lambda p: (pr.linear_scatter_plain if p
+                                              else pr.linear_scatter)(
+                                                  flat, 1)),
+            ]
+            for name, run in movers:
+                got = run(False)
+                torch.cuda.synchronize()
+                check_sems(KERNELS[name])
+                equal_or_raise(got, run(True),
+                               f"{name} n={n} {dtype} elems={elems}")
+                checked += 1
+    log(f"[kernel-vs-plain] data movers at other element sizes: {checked} "
+        f"cases bitwise equal, all semaphores 0 ({time.time() - t0:.1f} s)")
 
 
 def allreduce_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
@@ -356,6 +433,130 @@ def coll_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
     return errs
 
 
+def bidir_path(pcomm, tcomm, pr, config, counters, gen) -> float:
+    """The bidirectional ring allreduce through both routes; returns the
+    max error against its plain version."""
+    import torch
+
+    err = 0.0
+    x = random_rank_major((N, BIDIR_BYTES // 4), torch.float32, gen)
+    want = pr.allreduce_block_bidir(x, "sum",
+                                    bidir=pr.ring_allreduce_bidir_plain)
+    for comm, route, var, value in (
+            (pcomm, "PallasColl[coll_pallas_bidir=1]", "coll_pallas_bidir",
+             True),
+            (tcomm, "TunedColl[pallas_bidir]",
+             "coll_tuned_allreduce_algorithm", "pallas_bidir")):
+        config.VARS.set(var, value)
+        t0 = time.time()
+        out = comm.allreduce(x, "sum")
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        config.VARS.set(var, False if var == "coll_pallas_bidir" else "")
+        check_sems(counters.KERNELS["ring_allreduce_bidir"])
+        # float32 sums in another order: a few ulps apart.
+        if not (bool(torch.isfinite(out).all()) and torch.allclose(
+                out, x.sum(0, keepdim=True).expand_as(x), rtol=1e-5,
+                atol=1e-5)):
+            raise AssertionError(f"{route}: wrong result")
+        err = max(err, equal_or_raise(out, want, route))
+        log(f"[main] {route} {BIDIR_BYTES} B/rank x {N} ranks: "
+            f"{dt * 1e3:.3f} ms host wall (first call), equal to plain and "
+            f"to the torch check")
+    return err
+
+
+def move_input(kernel, nbytes, gen):
+    """The main path's input of a data-movement collective at ``nbytes``
+    per rank (sent per rank for alltoall; root's buffer holds n rows of
+    ``nbytes`` for scatter)."""
+    import torch
+
+    if kernel == "ring_alltoall":
+        return random_rank_major((N, N, nbytes // 4 // N), torch.float32, gen)
+    return random_rank_major((N, nbytes // 4), torch.float32, gen)
+
+
+def move_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
+    """alltoall, gather and scatter through both routes at 1 GiB and
+    4 KiB per rank; kernel -> max error."""
+    import torch
+    from ompi_tpu_torch.coll import tuned
+
+    errs = {k: 0.0 for k in MOVE_CASES}
+
+    def call(comm, kernel, x):
+        if kernel == "ring_alltoall":
+            return comm.alltoall(x)
+        if kernel == "linear_gather":
+            return comm.gather(x, GATHER_ROOT)
+        return comm.scatter(x, SCATTER_ROOT)
+
+    def plain(kernel, x):
+        if kernel == "ring_alltoall":
+            return pr.alltoall_block(x, a2a=pr.ring_alltoall_plain)
+        if kernel == "linear_gather":
+            return pr.gather_block(x, GATHER_ROOT,
+                                   gather=pr.linear_gather_plain)
+        return pr.scatter_block(x, SCATTER_ROOT,
+                                scatter=pr.linear_scatter_plain)
+
+    def independent_check(kernel, x, out, what):
+        """The result against what PyTorch computes on its own."""
+        want = x.transpose(0, 1) if kernel == "ring_alltoall" else x
+        if out.shape != want.shape or not torch.equal(out, want):
+            raise AssertionError(f"{what}: wrong result")
+
+    def run(comm, kernel, nbytes, route):
+        x = move_input(kernel, nbytes, gen)
+        t0 = time.time()
+        out = call(comm, kernel, x)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        what = f"{route} {kernel} {nbytes} B/rank"
+        check_sems(counters.KERNELS[kernel])
+        independent_check(kernel, x, out, what)
+        want = plain(kernel, x)
+        errs[kernel] = max(errs[kernel], equal_or_raise(out, want, what))
+        del want
+        torch.cuda.empty_cache()
+        log(f"[main] {what} x {N} ranks: {dt * 1e3:.3f} ms host wall "
+            f"(first call), equal to plain and to the torch check")
+        if kernel == "ring_alltoall":
+            # TunedColl's default route: the spmd algorithm the priors
+            # pick (pairwise at 128 MiB per destination), no kernel.
+            before = counters.KERNELS[kernel].launches
+            algo = tuned.decide_alltoall(nbytes // N, N)
+            t0 = time.time()
+            default = tcomm.alltoall(x)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            if counters.KERNELS[kernel].launches != before:
+                raise AssertionError("tuned's default alltoall launched the "
+                                     "kernel")
+            equal_or_raise(default, out,
+                           f"TunedColl[{algo}] alltoall vs kernel")
+            log(f"[main] TunedColl[{algo}] (default) alltoall {nbytes} "
+                f"B/rank x {N} ranks: {dt * 1e3:.3f} ms host wall, equal to "
+                f"the kernel's result")
+            del default
+        del x, out
+        torch.cuda.empty_cache()
+
+    for kernel in MOVE_CASES:
+        for nbytes in COLL_SIZES:
+            run(pcomm, kernel, nbytes, "PallasColl")
+    for kernel, forced in MOVE_CASES.items():
+        if forced is None:
+            continue
+        var, algo = forced
+        config.VARS.set(var, algo)
+        for nbytes in COLL_SIZES:
+            run(tcomm, kernel, nbytes, f"TunedColl[{algo}]")
+        config.VARS.set(var, "")
+    return errs
+
+
 def main_path(tt, pr, config) -> tuple[dict, dict]:
     """Both vtable routes at full size; returns (kernel -> max error,
     kernel -> launches on the main path)."""
@@ -368,10 +569,8 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
     pcomm = world.dup()
     config.VARS.set("coll_pallas_priority", 30)
     tcomm = world.dup()
-    for opname in ("allreduce",) + tuple(
-            {"tree_bcast": "bcast", "tree_reduce": "reduce",
-             "ring_reduce_scatter": "reduce_scatter_block",
-             "ring_allgather": "allgather"}.values()):
+    for opname in ("allreduce", "bcast", "reduce", "reduce_scatter_block",
+                   "allgather", "alltoall", "gather", "scatter"):
         if pcomm._coll[opname][0].NAME != "pallas":
             raise AssertionError(f"pallas component not selected: {opname}")
         if tcomm._coll[opname][0].NAME != "tuned":
@@ -380,6 +579,9 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
     counters.reset_launches()
     errs = allreduce_path(pcomm, tcomm, pr, config, counters, gen)
     errs.update(coll_path(pcomm, tcomm, pr, config, counters, gen))
+    errs["ring_allreduce_bidir"] = bidir_path(pcomm, tcomm, pr, config,
+                                              counters, gen)
+    errs.update(move_path(pcomm, tcomm, pr, config, counters, gen))
     launches = counters.launches()
     for kernel in SOURCES:
         if launches.get(kernel, 0) < 1:
@@ -432,6 +634,27 @@ def timed_case(pr, kernel, nbytes, gen):
                 inp, "sum", seg)
         library = lambda: x.sum(0, keepdim=True).expand_as(x).contiguous()  # noqa: E731
         return fn, plain, library, 2 * n * nbytes, "float32", "sum"
+    if kernel == "ring_allreduce_bidir":
+        x = random_rank_major((n, nbytes // 4), torch.float32, gen)
+        inp, _, _ = pr._split_ring(x)  # 1 MiB: blocks of 256-lane multiples
+        return (lambda: pr.ring_allreduce_bidir(inp, "sum"),
+                lambda: pr.ring_allreduce_bidir_plain(inp, "sum"),
+                lambda: x.sum(0, keepdim=True).expand_as(x).contiguous(),
+                2 * n * nbytes, "float32", "sum")
+    if kernel in MOVE_CASES:
+        x = move_input(kernel, nbytes, gen)  # multiples of 128 lanes
+        if kernel == "ring_alltoall":
+            return (lambda: pr.ring_alltoall(x),
+                    lambda: pr.ring_alltoall_plain(x),
+                    lambda: x.transpose(0, 1).contiguous(),
+                    2 * n * nbytes, "float32", None)
+        if kernel == "linear_gather":
+            return (lambda: pr.linear_gather(x, GATHER_ROOT),
+                    lambda: pr.linear_gather_plain(x, GATHER_ROOT),
+                    lambda: x.clone(), 2 * n * nbytes, "float32", None)
+        return (lambda: pr.linear_scatter(x, SCATTER_ROOT),
+                lambda: pr.linear_scatter_plain(x, SCATTER_ROOT),
+                lambda: x.clone(), 2 * n * nbytes, "float32", None)
     x = coll_input(kernel, nbytes, gen)  # sizes are multiples of 128 lanes
     if kernel == "tree_bcast":
         return (lambda: pr.tree_bcast(x, BCAST_ROOT),
@@ -456,7 +679,9 @@ def measure(pr, gen, errs, launches) -> list:
     import torch
 
     rows = []
-    sizes = dict(MAIN_SIZES, **{k: GIB for k in COLL_CASES})
+    sizes = dict(MAIN_SIZES, **{k: GIB for k in COLL_CASES},
+                 ring_allreduce_bidir=BIDIR_BYTES,
+                 **{k: GIB for k in MOVE_CASES})
     for kernel, nbytes in sizes.items():
         fn, plain, library, nbytes_moved, dtype, op = timed_case(
             pr, kernel, nbytes, gen)
@@ -476,7 +701,7 @@ def measure(pr, gen, errs, launches) -> list:
         del fn, plain, library
         torch.cuda.empty_cache()
         extra = ""
-        if kernel in COLL_CASES:
+        if kernel in COLL_CASES or kernel in MOVE_CASES:
             fn, _, _, _, _, _ = timed_case(pr, kernel, 4 * KIB, gen)
             row["small_ms"] = p50_ms(fn, KERNEL_REPS)
             extra = f", {row['small_ms']:.4f} ms at 4 KiB/rank"

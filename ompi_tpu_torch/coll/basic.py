@@ -1,6 +1,6 @@
 """coll/basic — the rank-ordered linear oracle (port of
-``ompi_tpu/coll/basic.py``: allreduce, bcast, reduce, allgather and
-reduce_scatter_block).
+``ompi_tpu/coll/basic.py``: allreduce, bcast, reduce, allgather,
+reduce_scatter_block, alltoall, gather and scatter).
 
 The lowest-priority component: it handles every op and dtype by folding
 ``acc = op(acc, x[i])`` for i = 1..n-1 in rank order, so it is right for
@@ -19,7 +19,7 @@ from ..core.errors import ArgumentError
 from ..ops import lookup as op_lookup
 from .framework import COLL, CollComponent, rank_major_check
 from .spmd import _broadcast_ranks
-from .xla import _leaf_check
+from .xla import _leaf_check, scatter_buffer
 
 
 def _row(x: Any, i: int) -> Any:
@@ -78,3 +78,19 @@ class BasicColl(CollComponent):
                 f"{tuple(x.shape)}")
         # acc[j] is rank j's block.
         return _fold(x, op, comm.size)
+
+    def alltoall(self, comm, x):
+        x = rank_major_check(comm, x, min_ndim=2)
+        if x.shape[1] != comm.size:
+            raise ArgumentError(
+                f"alltoall needs (size, size, ...), got {tuple(x.shape)}")
+        return x.transpose(0, 1).contiguous()
+
+    def gather(self, comm, x, root):
+        """Root's rows: every rank's block, in rank order."""
+        del root
+        return rank_major_check(comm, x).clone()
+
+    def scatter(self, comm, x, root):
+        del root
+        return scatter_buffer(comm, x).clone()

@@ -19,8 +19,8 @@ from ..core.counters import SPC
 from ..core.errors import ArgumentError
 
 # Collective operations a component may provide (the JAX package's
-# OPERATIONS tuple; the port has allreduce, bcast, reduce, allgather and
-# reduce_scatter_block so far).
+# OPERATIONS tuple; the port has allreduce, bcast, reduce, allgather,
+# reduce_scatter_block, alltoall, gather and scatter so far).
 OPERATIONS = (
     "allreduce", "bcast", "reduce", "allgather", "reduce_scatter_block",
     "alltoall", "gather", "scatter", "scan", "exscan", "barrier",

@@ -1,9 +1,9 @@
 """coll/pallas — the hand-scheduled collective kernels, on Hopper.
 
 Port of ``ompi_tpu/coll/pallas_ring.py``'s allreduce, reduce, bcast,
-allgather and reduce_scatter_block paths. Each Pallas kernel on them is
-a hand-written CUDA kernel here (``csrc/``), with a wrapper, a plain
-version and a launch counter:
+allgather, reduce_scatter_block, alltoall, gather and scatter paths.
+Each Pallas kernel on them is a hand-written CUDA kernel here
+(``csrc/``), with a wrapper, a plain version and a launch counter:
 
 - ``ring_allreduce`` (``_allreduce_kernel``): the whole-payload ring,
   2(n-1) steps over a two-slot comm buffer with credits.
@@ -21,6 +21,15 @@ version and a launch counter:
   one comm slot per sender.
 - ``tree_bcast`` (``_tree_bcast_kernel``): binomial broadcast from a
   root, with the receiver's "ready" handshake before each store.
+- ``ring_allreduce_bidir`` (``_allreduce_bidir_kernel``): the ring in
+  both directions at once, half of every ring block each, as two
+  independent groups of thread blocks with their own slots and flags.
+- ``ring_alltoall`` (``_alltoall_kernel``): pairwise exchange, one flag
+  per step per receiver; it moves bytes, so it takes any dtype.
+- ``linear_gather`` (``_gather_kernel``) and ``linear_scatter``
+  (``_scatter_kernel``): every sender stores into root's rows after
+  root's ready credit, one flag per sender; root stores into every
+  receiver's row, no handshake. Both move bytes, any dtype.
 
 Ranks on one card: a rank-major ``(n, ...)`` tensor holds n virtual
 ranks. A Pallas remote DMA becomes stores into the peer rank's comm slot
@@ -40,9 +49,12 @@ is forwarded. The port credits a slot right after the send FROM it
 interleavings; the tests show the reference's placement fails there and
 the port's does not.
 
-Plain versions: ``simulate_ring``/``simulate_rd``/``simulate_tree_*``
-run the same slot and flag schedule rank by rank on tensors (what
-``pallas_lower.simulate`` is to the JAX package). A wrapper uses its
+Plain versions: ``simulate_ring``/``simulate_rd``/``simulate_tree_*``/
+``simulate_ring_bidir``/``simulate_alltoall``/``simulate_gather``/
+``simulate_scatter`` run the same slot and flag schedule rank by rank on
+tensors (what ``pallas_lower.simulate`` is to the JAX package). The
+data-movement simulators also record, as a fault, every wait that
+returns before the row it certifies has landed. A wrapper uses its
 plain version only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises.
 
@@ -68,6 +80,7 @@ from ..core.device import require_kernel_device
 from ..core.errors import ArgumentError, KernelError
 from ..ops import Op, lookup as op_lookup
 from .framework import COLL, CollComponent, compile_plan, rank_major_check
+from .xla import scatter_buffer
 
 _segment_var = config.register(
     "coll", "pallas", "segment_bytes",
@@ -80,6 +93,12 @@ _chunk_threshold_var = config.register(
     type=int, default=4 << 20,
     description="Per-rank payload size above which pallas allreduce "
                 "streams segments (chunked kernel)",
+)
+_bidir_var = config.register(
+    "coll", "pallas", "bidir",
+    type=bool, default=False,
+    description="Use the bidirectional ring for pallas allreduce "
+                "(half the payload round each ring direction)",
 )
 _rd_cutoff_var = config.register(
     "coll", "pallas", "rd_cutoff_bytes",
@@ -102,6 +121,10 @@ RS = KernelCounter("ring_reduce_scatter")
 AG = KernelCounter("ring_allgather")
 TREE_REDUCE = KernelCounter("tree_reduce")
 TREE_BCAST = KernelCounter("tree_bcast")
+BIDIR = KernelCounter("ring_allreduce_bidir")
+ALLTOALL = KernelCounter("ring_alltoall")
+GATHER = KernelCounter("linear_gather")
+SCATTER = KernelCounter("linear_scatter")
 
 _OP_CODES = {"sum": 0, "prod": 1, "max": 2, "min": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -162,6 +185,73 @@ def _ring_blocks(x: torch.Tensor, rs: bool) -> tuple[int, int]:
     return n, W
 
 
+def _ring_programs(x: torch.Tensor, out: torch.Tensor, op: Optional[Op],
+                   seg: int, sems: dict, *, segmented: bool, credit: str,
+                   phase: str, direction: int, tag: tuple = ()) -> list:
+    """The n rank programs of one ring over ``x`` into ``out`` (either
+    may be a column view), with its own comm slots and with flags keyed
+    (rank, *tag, name, slot). ``direction`` +1 sends to rank me+1 (the
+    ring of ``ring_allreduce``), -1 to rank me-1; block indices mirror
+    with it (``blk = me - direction·(step + 2)``, as in the JAX
+    package's bidirectional kernel)."""
+    rs, ag = phase != "ag", phase != "rs"
+    n, W = x.shape[0], x.shape[-1]
+    n_segs = W // seg
+    comm = x.new_empty((n, 2, seg))
+    rs_steps = n - 1 if rs else 0
+    nsteps = rs_steps + (n - 1 if ag else 0)
+    d = direction
+
+    def rank(me):
+        left, right = (me - d) % n, (me + d) % n
+        xr, o = x[me], out[me]
+        own = o[me] if ag else o  # where this rank's own block ends up
+        if segmented:
+            sems[(left,) + tag + ("seg",)] += 1
+        for si in range(n_segs):
+            cols = slice(si * seg, (si + 1) * seg)
+            if segmented:
+                yield (me,) + tag + ("seg",), 1
+            comm[me, 0] = xr[left, cols] if rs else xr[cols]
+            if not rs:
+                own[cols] = xr[cols]
+            if credit == "reference" and nsteps > 1:
+                sems[(left,) + tag + ("cap", 0)] += 1
+            # The seed is not sent with the post-seed credit's signal.
+            yield _PAUSE
+            for step in range(nsteps):
+                slot, nslot = step % 2, (step + 1) % 2
+                if step >= 1:
+                    yield (me,) + tag + ("cap", nslot), 1
+                comm[right, nslot] = comm[me, slot]
+                sems[(right,) + tag + ("recv", nslot)] += 1
+                if credit == "port" and step < nsteps - 1:
+                    sems[(left,) + tag + ("cap", slot)] += 1
+                yield (me,) + tag + ("recv", nslot), 1
+                if step < rs_steps:
+                    blk = (me - d * (step + 2)) % n
+                    val = op.combine(comm[me, nslot], xr[blk, cols])
+                    comm[me, nslot] = val
+                    if step == n - 2:
+                        own[cols] = val
+                else:
+                    blk = (me - d * (step - rs_steps + 1)) % n
+                    o[blk, cols] = comm[me, nslot]
+                if credit == "reference" and step < nsteps - 2:
+                    sems[(left,) + tag + ("cap", nslot)] += 1
+            if segmented:
+                sems[(left,) + tag + ("seg",)] += 1
+        if segmented:
+            yield (me,) + tag + ("seg",), 1
+
+    return [rank(r) for r in range(n)]
+
+
+def _check_credit(credit: str) -> None:
+    if credit not in ("port", "reference"):
+        raise ArgumentError(f"unknown credit placement {credit!r}")
+
+
 def simulate_ring(x: torch.Tensor, op: Optional[Op],
                   seg_cols: Optional[int] = None, *, segmented: bool = False,
                   credit: str = "port", rng: Optional[random.Random] = None,
@@ -179,8 +269,7 @@ def simulate_ring(x: torch.Tensor, op: Optional[Op],
     once, granted after each segment, drained at exit). ``credit``
     "port" is the kernels' placement; "reference" is the JAX package's
     (a post-seed credit, then a credit right after filling a slot)."""
-    if credit not in ("port", "reference"):
-        raise ArgumentError(f"unknown credit placement {credit!r}")
+    _check_credit(credit)
     if phase not in ("both", "rs", "ag"):
         raise ArgumentError(f"unknown ring phase {phase!r}")
     rs, ag = phase != "ag", phase != "rs"
@@ -188,54 +277,152 @@ def simulate_ring(x: torch.Tensor, op: Optional[Op],
     seg = W if seg_cols is None else seg_cols
     if seg <= 0 or W % seg:
         raise ArgumentError(f"segment {seg} does not divide {W}")
-    n_segs = W // seg
     out = x.new_empty((n, n, W) if ag else (n, W))
-    comm = x.new_empty((n, 2, seg))
     sems: dict = collections.defaultdict(int)
-    rs_steps = n - 1 if rs else 0
-    nsteps = rs_steps + (n - 1 if ag else 0)
+    _drive(_ring_programs(x, out, op, seg, sems, segmented=segmented,
+                          credit=credit, phase=phase, direction=1),
+           sems, rng)
+    return out, _residue(sems)
+
+
+def simulate_ring_bidir(blocks: torch.Tensor, op: Op, *, credit: str = "port",
+                        rng: Optional[random.Random] = None,
+                        shared_flags: bool = False):
+    """Run the bidirectional ring on (n, n, C) blocks, C even: columns
+    [0, C/2) of every block go round the ring to the right, [C/2, C) to
+    the left, as two independent rings with their own comm slots and
+    flags (``shared_flags`` makes the two share one set of flags: the
+    negative control, since at n = 2 both directions signal the same
+    neighbour). Returns (out, residue) as ``simulate_ring`` does."""
+    _check_credit(credit)
+    n, C = _ring_blocks(blocks, True)
+    if C % 2:
+        raise ArgumentError(f"bidirectional ring needs even blocks, got {C}")
+    half = C // 2
+    out = torch.empty_like(blocks)
+    sems: dict = collections.defaultdict(int)
+    programs = []
+    for d, cols in ((1, slice(0, half)), (-1, slice(half, C))):
+        programs += _ring_programs(
+            blocks[..., cols], out[..., cols], op, half, sems,
+            segmented=False, credit=credit, phase="both", direction=d,
+            tag=() if shared_flags else (d,))
+    _drive(programs, sems, rng)
+    return out, _residue(sems)
+
+
+def _check_flags(flags: str) -> None:
+    if flags not in ("port", "shared"):
+        raise ArgumentError(f"unknown flag layout {flags!r}")
+
+
+def _early(sems: dict, landed: set, rank: int, row: int) -> None:
+    """A wait of ``rank`` certifying that ``row`` has landed returned:
+    record a fault in the residue if it has not."""
+    if (rank, row) not in landed:
+        sems["early", rank, row] += 1
+
+
+def simulate_alltoall(x: torch.Tensor, *, flags: str = "port",
+                      rng: Optional[random.Random] = None):
+    """Run the pairwise alltoall on (n, n, W): rank me copies its own
+    block, then at step s stores block me+s into rank me+s's row me,
+    signals that rank's step-s flag and waits for its own step-s flag,
+    which certifies that row me-s has landed. ``flags`` "shared" rotates
+    two flags (step % 2) instead of one per step: the hazard the JAX
+    package's docstring names (a later step's store satisfies an earlier
+    step's wait). Returns (out, residue); residue also holds every wait
+    that returned before the row it certifies had landed."""
+    _check_flags(flags)
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    sems: dict = collections.defaultdict(int)
+    landed: set = set()
+
+    def flag(step):
+        return step if flags == "port" else step % 2
 
     def rank(me):
-        left, right = (me - 1) % n, (me + 1) % n
-        xr, o = x[me], out[me]
-        own = o[me] if ag else o  # where this rank's own block ends up
-        if segmented:
-            sems[left, "seg"] += 1
-        for si in range(n_segs):
-            cols = slice(si * seg, (si + 1) * seg)
-            if segmented:
-                yield (me, "seg"), 1
-            comm[me, 0] = xr[left, cols] if rs else xr[cols]
-            if not rs:
-                own[cols] = xr[cols]
-            if credit == "reference" and nsteps > 1:
-                sems[left, "cap", 0] += 1
-            # The seed is not sent with the post-seed credit's signal.
-            yield _PAUSE
-            for step in range(nsteps):
-                slot, nslot = step % 2, (step + 1) % 2
-                if step >= 1:
-                    yield (me, "cap", nslot), 1
-                comm[right, nslot] = comm[me, slot]
-                sems[right, "recv", nslot] += 1
-                if credit == "port" and step < nsteps - 1:
-                    sems[left, "cap", slot] += 1
-                yield (me, "recv", nslot), 1
-                if step < rs_steps:
-                    blk = (me - step - 2) % n
-                    val = op.combine(comm[me, nslot], xr[blk, cols])
-                    comm[me, nslot] = val
-                    if step == n - 2:
-                        own[cols] = val
-                else:
-                    blk = (me - (step - rs_steps) - 1) % n
-                    o[blk, cols] = comm[me, nslot]
-                if credit == "reference" and step < nsteps - 2:
-                    sems[left, "cap", nslot] += 1
-            if segmented:
-                sems[left, "seg"] += 1
-        if segmented:
-            yield (me, "seg"), 1
+        out[me, me] = x[me, me]
+        for step in range(1, n):
+            dst = (me + step) % n
+            out[dst, me] = x[me, dst]
+            landed.add((dst, me))
+            sems[dst, "recv", flag(step)] += 1
+            yield (me, "recv", flag(step)), 1
+            _early(sems, landed, me, (me - step) % n)
+
+    _drive([rank(r) for r in range(n)], sems, rng)
+    return out, _residue(sems)
+
+
+def simulate_gather(flat: torch.Tensor, root: int = 0, *,
+                    flags: str = "port",
+                    rng: Optional[random.Random] = None):
+    """Run the linear gather on (n, L): root copies its own row, grants
+    every sender a ready credit and waits on one flag per sender; a
+    sender waits for its credit, stores its row into root's row ``me``
+    and signals its flag. ``flags`` "shared" gives root one flag for all
+    senders (the hazard the JAX package's docstring names). Returns
+    (root's (n, L) rows, residue) as ``simulate_alltoall`` does."""
+    _check_flags(flags)
+    n = flat.shape[0]
+    out = torch.empty_like(flat)
+    sems: dict = collections.defaultdict(int)
+    landed: set = set()
+
+    def flag(sender):
+        return (root, "recv", sender if flags == "port" else None)
+
+    def rank(me):
+        if me == root:
+            out[me] = flat[me]
+            for q in range(1, n):
+                sems[(root + q) % n, "ready"] += 1
+            for q in range(1, n):
+                sender = (root + q) % n
+                yield flag(sender), 1
+                _early(sems, landed, root, sender)
+        else:
+            yield (me, "ready"), 1
+            out[me] = flat[me]
+            landed.add((root, me))
+            sems[flag(me)] += 1
+
+    _drive([rank(r) for r in range(n)], sems, rng)
+    return out, _residue(sems)
+
+
+def simulate_scatter(buf: torch.Tensor, root: int = 0, *,
+                     flags: str = "port",
+                     rng: Optional[random.Random] = None):
+    """Run the linear scatter of root's (n, L) buffer: root copies its
+    own row, then stores row root+s into rank root+s's output and
+    signals that rank's flag, for s = 1..n-1; a receiver only waits for
+    its flag. ``flags`` "shared" gives every receiver one flag (on one
+    card the ranks' flags share one memory). Returns (rank-major (n, L),
+    residue) as ``simulate_alltoall`` does."""
+    _check_flags(flags)
+    n = buf.shape[0]
+    out = torch.empty_like(buf)
+    sems: dict = collections.defaultdict(int)
+    landed: set = set()
+
+    def flag(rank):
+        return (rank if flags == "port" else None, "recv")
+
+    def rank(me):
+        if me == root:
+            out[me] = buf[me]
+            for q in range(1, n):
+                dst = (root + q) % n
+                out[dst] = buf[dst]
+                landed.add((dst, dst))
+                sems[flag(dst)] += 1
+                yield _PAUSE
+        else:
+            yield flag(me), 1
+            _early(sems, landed, me, me)
 
     _drive([rank(r) for r in range(n)], sems, rng)
     return out, _residue(sems)
@@ -332,7 +519,8 @@ def simulate_tree_bcast(flat: torch.Tensor, root: int = 0, *,
 def _checked(result):
     out, residue = result
     if residue:
-        raise RuntimeError(f"protocol left flags non-zero: {residue}")
+        raise RuntimeError(f"protocol fault (flags not back at 0, or early "
+                           f"waits): {residue}")
     return out
 
 
@@ -366,6 +554,22 @@ def tree_bcast_plain(flat: torch.Tensor, root: int) -> torch.Tensor:
     return _checked(simulate_tree_bcast(flat, root))
 
 
+def ring_allreduce_bidir_plain(blocks: torch.Tensor, op) -> torch.Tensor:
+    return _checked(simulate_ring_bidir(blocks, op_lookup(op)))
+
+
+def ring_alltoall_plain(x: torch.Tensor) -> torch.Tensor:
+    return _checked(simulate_alltoall(x))
+
+
+def linear_gather_plain(flat: torch.Tensor, root: int) -> torch.Tensor:
+    return _checked(simulate_gather(flat, root))
+
+
+def linear_scatter_plain(buf: torch.Tensor, root: int) -> torch.Tensor:
+    return _checked(simulate_scatter(buf, root))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
@@ -388,6 +592,14 @@ _ARGTYPES = {
     "tree_reduce": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, L, root, dtype, dev, stream
     "tree_bcast": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, W, half, op, dtype, dev, stream
+    "ring_allreduce_bidir": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I,
+                             _P],
+    # x, out, comm, sems, n, stripes, W, elem size, dev, stream
+    "ring_alltoall": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, L, root, elem size, dev, stream
+    "linear_gather": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+    "linear_scatter": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
 }
 
 
@@ -428,21 +640,22 @@ def _stripes(n: int, cols: int, sm_count: int) -> int:
 
 def _launch(name: str, counter: KernelCounter, x: torch.Tensor,
             out_shape: tuple, cols: int, slots: int, nsem: int,
-            scalars: tuple, codes: tuple) -> torch.Tensor:
+            scalars: tuple, codes: tuple, dirs: int = 1) -> torch.Tensor:
     """Launch csrc/<name>.cu on x into a new ``out_shape`` tensor. Each
-    rank is striped over blocks of ``cols`` columns; the comm scratch
-    holds ``slots`` stripe-wide slots per stripe (the kernel lays them
-    out) and the flags are (n, stripes, nsem) int32, zeroed here on
-    every launch. ``codes`` are the op and dtype codes the C entry
-    takes after ``scalars``."""
+    rank is striped over blocks of ``cols`` columns, in ``dirs`` groups
+    of n x stripes blocks (two for the bidirectional ring); the comm
+    scratch holds ``slots`` stripe-wide slots per stripe (the kernel
+    lays them out) and the flags are (dirs, n, stripes, nsem) int32,
+    zeroed here on every launch. ``codes`` are the op and dtype codes
+    (or the element size) the C entry takes after ``scalars``."""
     cap = require_kernel_device(x)
     n = x.shape[0]
-    stripes = _stripes(n, cols, cap.sm_count)
+    stripes = _stripes(n * dirs, cols, cap.sm_count)
     sw = -(-cols // stripes)
     x = x.contiguous()
     out = x.new_empty(out_shape)
     comm = x.new_empty(slots * stripes * sw)
-    sems = torch.zeros(n * stripes * nsem, dtype=torch.int32,
+    sems = torch.zeros(dirs * n * stripes * nsem, dtype=torch.int32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _entry(name)(x.data_ptr(), out.data_ptr(), comm.data_ptr(),
@@ -542,6 +755,63 @@ def tree_bcast(flat: torch.Tensor, root: int = 0) -> torch.Tensor:
                    2 * rounds, (L, root), _dtype_code(flat.dtype))
 
 
+def ring_allreduce_bidir(blocks: torch.Tensor, op) -> torch.Tensor:
+    """(n, n, C) per-rank ring blocks, C even -> fully reduced (n, n,
+    C): columns [0, C/2) of every block fold round the ring to the right
+    (as ``ring_allreduce``), columns [C/2, C) round it to the left, from
+    rank b-1 down to rank b, both at once."""
+    op = op_lookup(op)
+    n, C = _ring_blocks(blocks, True)
+    if C % 2:
+        raise ArgumentError(f"bidirectional ring needs even blocks, got {C}")
+    if not blocks.is_cuda:
+        return ring_allreduce_bidir_plain(blocks, op)
+    return _launch("ring_allreduce_bidir", BIDIR, blocks, blocks.shape,
+                   C // 2, 2 * 2 * n, RING_NSEM, (C, C // 2),
+                   _codes(op, blocks.dtype), dirs=2)
+
+
+def ring_alltoall(x: torch.Tensor) -> torch.Tensor:
+    """(n, n, W) per-rank send blocks (row d for rank d) -> (n, n, W)
+    received blocks (row s from rank s), any dtype, by pairwise
+    exchange."""
+    n = x.shape[0]
+    if x.ndim != 3 or x.shape[1] != n:
+        raise ArgumentError(
+            f"alltoall input must be (n, n, W), got {tuple(x.shape)}")
+    if not x.is_cuda:
+        return ring_alltoall_plain(x)
+    W = x.shape[2]
+    return _launch("ring_alltoall", ALLTOALL, x, x.shape, W, 0, n - 1,
+                   (W,), (x.element_size(),))
+
+
+def linear_gather(flat: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """(n, L) per-rank blocks -> root's (n, L) gathered rows, any dtype.
+    The JAX package's kernel returns the rank-major (n, n, L) buffer,
+    whose rows are defined at root only, and ``PallasColl`` keeps root's;
+    this one builds root's alone: n·L elements instead of n²·L (8 GiB
+    instead of 64 GiB at 1 GiB per rank and n = 8)."""
+    n, L = flat.shape
+    _check_root(root, n)
+    if not flat.is_cuda:
+        return linear_gather_plain(flat, root)
+    return _launch("linear_gather", GATHER, flat, flat.shape, L, 0, 2,
+                   (L, root), (flat.element_size(),))
+
+
+def linear_scatter(buf: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Root's (n, L) buffer -> rank-major (n, L), rank r holding row r,
+    any dtype. The JAX package stages root's buffer on every rank,
+    (n, n, L), and reads only root's copy; this one takes root's alone."""
+    n, L = buf.shape
+    _check_root(root, n)
+    if not buf.is_cuda:
+        return linear_scatter_plain(buf, root)
+    return _launch("linear_scatter", SCATTER, buf, buf.shape, L, 0, 1,
+                   (L, root), (buf.element_size(),))
+
+
 # ---------------------------------------------------------------------------
 # Layouts: the JAX package's padding and blocking, on the rank-major
 # tensor (n, ...) -> per-rank kernel inputs.
@@ -612,6 +882,25 @@ def allreduce_block(b: torch.Tensor, op, *, ring=ring_allreduce
         return b
     blocks, pad, shape = _split_ring(b)
     return _unsplit(ring(blocks, op), pad, shape)
+
+
+def allreduce_block_bidir(b: torch.Tensor, op, *, bidir=ring_allreduce_bidir
+                          ) -> torch.Tensor:
+    """Rank-major allreduce over the bidirectional ring: ``_split_ring``'s
+    blocks, each zero-padded to a multiple of 256 columns so that it
+    splits into two 128-lane-aligned halves (``ring_allreduce_bidir``'s
+    padding in the JAX package)."""
+    if b.shape[0] == 1:
+        return b
+    blocks, pad, shape = _split_ring(b)
+    C = blocks.shape[-1]
+    half_pad = (-C) % (2 * LANES)
+    if half_pad:
+        blocks = F.pad(blocks, (0, half_pad))
+    out = bidir(blocks, op)
+    if half_pad:
+        out = out[..., :C]
+    return _unsplit(out, pad, shape)
 
 
 def allreduce_block_rd(b: torch.Tensor, op, *, rd=ring_allreduce_rd
@@ -692,6 +981,36 @@ def bcast_block(b: torch.Tensor, root: int = 0, *, tree=tree_bcast
     return _unpad(tree(flat, root), pad, shape)
 
 
+def alltoall_block(b: torch.Tensor, *, a2a=ring_alltoall) -> torch.Tensor:
+    """Rank-major (n, n, ...) send blocks -> (n, n, ...) received blocks
+    by the pairwise-exchange kernel, each block lane-padded to 128 as
+    the JAX package pads it."""
+    if b.shape[0] == 1:
+        return b
+    flat, pad, shape = _pad_chunk(b, lead=2)
+    return _unpad(a2a(flat), pad, shape)
+
+
+def gather_block(b: torch.Tensor, root: int = 0, *, gather=linear_gather
+                 ) -> torch.Tensor:
+    """Rank-major (n, ...) blocks -> root's (n, ...) gathered rows, by
+    the linear gather."""
+    if b.shape[0] == 1:
+        return b
+    flat, pad, shape = _pad_chunk(b)
+    return _unpad(gather(flat, root), pad, shape)
+
+
+def scatter_block(buf: torch.Tensor, root: int = 0, *,
+                  scatter=linear_scatter) -> torch.Tensor:
+    """Root's (n, ...) buffer -> rank-major (n, ...), rank r holding row
+    r, by the linear scatter."""
+    if buf.shape[0] == 1:
+        return buf
+    flat, pad, shape = _pad_chunk(buf)
+    return _unpad(scatter(flat, root), pad, shape)
+
+
 # ---------------------------------------------------------------------------
 # Component.
 # ---------------------------------------------------------------------------
@@ -717,6 +1036,9 @@ class PallasColl(CollComponent):
         elif shard_bytes < _rd_cutoff_var.value and pof2:
             body, key_extra = allreduce_block_rd, ()
             fn = lambda b: allreduce_block_rd(b, op)  # noqa: E731
+        elif _bidir_var.value:
+            body, key_extra = allreduce_block_bidir, ()
+            fn = lambda b: allreduce_block_bidir(b, op)  # noqa: E731
         else:
             body, key_extra = allreduce_block, ()
             fn = lambda b: allreduce_block(b, op)  # noqa: E731
@@ -766,3 +1088,31 @@ class PallasColl(CollComponent):
                tuple(x.shape), str(x.dtype))
         return compile_plan(
             comm, key, lambda b: reduce_scatter_block(b, op))(x)
+
+    def alltoall(self, comm, x):
+        x = rank_major_check(comm, x, min_ndim=2)
+        if x.shape[1] != comm.size:
+            raise ArgumentError(
+                f"alltoall needs (size, size, ...) buffer, got "
+                f"{tuple(x.shape)}")
+        if comm.size == 1:
+            return x
+        key = ("alltoall", "pallas", tuple(x.shape), str(x.dtype))
+        return compile_plan(comm, key, alltoall_block)(x)
+
+    def gather(self, comm, x, root):
+        """Linear gather; returns root's rows."""
+        x = rank_major_check(comm, x)
+        if comm.size == 1:
+            return x[:, None][root]
+        key = ("gather", "pallas", root, tuple(x.shape), str(x.dtype))
+        return compile_plan(comm, key, lambda b: gather_block(b, root))(x)
+
+    def scatter(self, comm, x, root):
+        """Linear scatter of root's (size, ...) buffer, which goes to the
+        kernel as it is (the JAX package stages it on every rank)."""
+        buf = scatter_buffer(comm, x)
+        if comm.size == 1:
+            return buf
+        key = ("scatter", "pallas", root, tuple(buf.shape), str(buf.dtype))
+        return compile_plan(comm, key, lambda b: scatter_block(b, root))(buf)

@@ -1,6 +1,6 @@
 """Cold-start priors: the static algorithm tables (port of
-``ompi_tpu/coll/sched/priors.py``: allreduce, bcast, reduce, allgather
-and reduce_scatter).
+``ompi_tpu/coll/sched/priors.py``: allreduce, alltoall, bcast, reduce,
+allgather, reduce_scatter, gather and scatter).
 
 Every ``nbytes`` parameter is BYTES PER RANK (the block size of the
 rank-major payload). The quantized-wire tier is not ported yet, so its
@@ -35,6 +35,15 @@ def prior_allreduce(op: Op, nbytes: int, nranks: int, dtype=None,
     if nbytes <= t._ring_limit.value:
         return "ring"
     return "ring_segmented"
+
+
+def prior_alltoall(nbytes_per_dest: int, nranks: int) -> str:
+    t = _t()
+    if nbytes_per_dest <= t._alltoall_small.value and nranks >= 8:
+        return "bruck"
+    if nbytes_per_dest >= t._alltoall_large.value:
+        return "pairwise"
+    return "native"
 
 
 def prior_allgather(nbytes: int, nranks: int) -> str:
@@ -84,3 +93,16 @@ def prior_reduce_scatter(op: Op, nbytes: int, nranks: int) -> str:
     if pof2 and nbytes < t._small.value:
         return "recursive_halving"
     return "ring"
+
+
+def prior_gather(nbytes: int, nranks: int) -> str:
+    t = _t()
+    if nbytes < t._gather_binomial_max.value and nranks >= 4:
+        return "binomial"
+    return "native"
+
+
+def prior_scatter(nbytes: int, nranks: int) -> str:
+    # Always native: scatter is a reshard of root's buffer; the tree and
+    # kernel forms are reachable only by the forced var.
+    return "native"

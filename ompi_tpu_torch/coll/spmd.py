@@ -3,10 +3,21 @@
 
 The JAX package writes each algorithm inside ``shard_map`` over a named
 mesh axis. In the port an algorithm receives the whole rank-major
-``(n, ...)`` tensor and returns the rank-major result. This slice ports
-the native allreduce, bcast, reduce, allgather and reduce-scatter, and
-the rank-ordered gather-reduce that the non-commutative guard routes
-to.
+``(n, ...)`` tensor and returns the rank-major result. Ported so far:
+the native allreduce, bcast, reduce, allgather, reduce-scatter,
+alltoall, gather and scatter; the rank-ordered gather-reduce that the
+non-commutative guard routes to; and the alltoall (pairwise, bruck),
+gather and scatter (binomial) algorithms the priors pick.
+
+The round-based algorithms keep the JAX package's rounds: a ``ppermute``
+there becomes a roll or an index over the rank axis here, one round at
+a time. They move data only, so they are exact.
+
+Two conventions differ from the JAX package, where an algorithm returns
+every rank's view: a gather algorithm returns root's gathered ``(n,
+...)`` rows alone (the only rows MPI defines), and a scatter algorithm
+takes root's ``(n, ...)`` buffer alone (the JAX package stages it on
+every rank, and reads only root's copy).
 """
 
 from __future__ import annotations
@@ -15,6 +26,7 @@ from typing import Any
 
 import torch
 
+from ..core.errors import ArgumentError
 from ..ops import Op
 
 
@@ -94,3 +106,128 @@ def _tree_reduce_ranks(gathered: Any, n: int, op: Op) -> Any:
             nxt.append(parts[-1])
         parts = nxt
     return parts[0]
+
+
+# ---------------------------------------------------------------------------
+# alltoall / gather / scatter
+# ---------------------------------------------------------------------------
+
+def _alltoall_check(x: torch.Tensor) -> int:
+    n = x.shape[0]
+    if x.ndim < 2 or x.shape[1] != n:
+        raise ArgumentError(
+            f"alltoall input must be (ranks, ranks, ...), got "
+            f"{tuple(x.shape)}")
+    return n
+
+
+def alltoall_native(x: torch.Tensor) -> torch.Tensor:
+    """(n, n, ...) -> (n, n, ...): rank r's row s is rank s's block for
+    rank r (the JAX package's ``lax.all_to_all``)."""
+    _alltoall_check(x)
+    return x.transpose(0, 1).contiguous()
+
+
+def alltoall_pairwise(x: torch.Tensor) -> torch.Tensor:
+    """Pairwise-exchange alltoall: n-1 rounds, in round k every rank
+    sends its block for rank+k straight there — the large-message
+    algorithm (reference: coll_base_alltoall.c, ..._intra_pairwise)."""
+    n = _alltoall_check(x)
+    ranks = torch.arange(n, device=x.device)
+    out = torch.zeros_like(x)
+    out[ranks, ranks] = x[ranks, ranks]
+    for k in range(1, n):
+        payload = x[ranks, (ranks + k) % n]
+        # the round's ppermute i -> i+k: rank i receives from rank i-k
+        out[ranks, (ranks - k) % n] = torch.roll(payload, k, 0)
+    return out
+
+
+def alltoall_bruck(x: torch.Tensor) -> torch.Tensor:
+    """Bruck alltoall: a local rotation, ceil(log2 n) rounds of
+    bit-indexed block exchanges with rank+2^k, and the inverse rotation
+    — the small-message algorithm (reference: coll_base_alltoall.c,
+    ..._intra_bruck)."""
+    n = _alltoall_check(x)
+    ranks = torch.arange(n, device=x.device)
+    r, j = ranks[:, None], ranks[None, :]
+    # Phase 1: rank r's block j is its block for rank r + j.
+    cur = x[r, (r + j) % n]
+    k = 1
+    while k < n:
+        # Phase 2: blocks whose index has bit k set go to rank + k.
+        mask = ((ranks & k) != 0).view((1, n) + (1,) * (x.ndim - 2))
+        cur = torch.where(mask, torch.roll(cur, k, 0), cur)
+        k *= 2
+    # Phase 3: rank r's block s came from rank r - s.
+    return cur[r, (r - j) % n]
+
+
+def gather_native(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Root's rows of the gather. The JAX package runs an allgather and
+    root reads its copy; every rank's copy of the allgather is x, so
+    only root's is built here (1/n of the allgather's memory)."""
+    del root
+    return x.clone()
+
+
+def scatter_native(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Root's (n, ...) buffer -> rank-major (n, ...): rank r takes row r.
+    The JAX package broadcasts root's staged copy by a root-masked psum
+    first (a root ``-0.0`` arrives there as ``+0.0``); here each row is
+    copied as it is."""
+    del root
+    return x.clone()
+
+
+def _pow2_rows(n: int) -> int:
+    return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+def gather_binomial(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Binomial-tree gather to root: in round k the root-relative ranks
+    that are odd multiples of 2^k forward their accumulated 2^k-row
+    subtree slab to vrank-2^k (reference: coll_base_gather.c,
+    ompi_coll_base_gather_intra_binomial). Every rank keeps its own
+    accumulator, padded to a power of two of rows as in the JAX
+    package; returns root's, in rank order."""
+    n = x.shape[0]
+    if n == 1:
+        return x.clone()
+    ranks = torch.arange(n, device=x.device)
+    vrank = (ranks - root) % n
+    acc = x.new_zeros((n, _pow2_rows(n)) + tuple(x.shape[1:]))
+    acc[ranks, vrank] = x
+    for k in range((n - 1).bit_length()):
+        blk = 1 << k
+        for vr in range(blk, n, 2 * blk):
+            # the round's ppermute: vrank vr -> vr - blk, slab [vr, vr+blk)
+            src, dst = (vr + root) % n, (vr - blk + root) % n
+            acc[dst, vr:vr + blk] = acc[src, vr:vr + blk]
+    return acc[root, vrank]
+
+
+def scatter_binomial(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Binomial-tree scatter from root, the gather tree in reverse: from
+    the widest slab down, in round k every holder of a 2^(k+1)-row slab
+    forwards its upper 2^k rows to vrank+2^k (reference:
+    coll_base_scatter.c, ompi_coll_base_scatter_intra_binomial). Takes
+    root's (n, ...) buffer; every rank's buffer is rotated into vrank
+    space and padded to a power of two of rows, as in the JAX package.
+    Returns rank-major (n, ...), rank r holding row r."""
+    n = x.shape[0]
+    if n == 1:
+        return x.clone()
+    ranks = torch.arange(n, device=x.device)
+    vrank = (ranks - root) % n
+    np2 = _pow2_rows(n)
+    buf = x.new_zeros((n, np2) + tuple(x.shape[1:]))
+    # only root's staged copy is ever read
+    buf[root] = x[(torch.arange(np2, device=x.device) + root) % n]
+    for k in reversed(range((n - 1).bit_length())):
+        blk = 1 << k
+        for vr in range(0, n - blk, 2 * blk):
+            # the round's ppermute: vrank vr -> vr + blk, its upper slab
+            src, dst = (vr + root) % n, (vr + blk + root) % n
+            buf[dst, vr + blk:vr + 2 * blk] = buf[src, vr + blk:vr + 2 * blk]
+    return buf[ranks, vrank]

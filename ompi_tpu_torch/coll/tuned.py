@@ -1,5 +1,6 @@
 """coll/tuned — the decision layer (port of ``ompi_tpu/coll/tuned.py``
-for allreduce, bcast, reduce, allgather and reduce_scatter_block).
+for allreduce, alltoall, bcast, reduce, allgather, reduce_scatter_block,
+gather and scatter).
 
 Precedence, as in the JAX package: forced var
 (``coll_tuned_<op>_algorithm``) > correctness guard (non-commutative or
@@ -8,9 +9,15 @@ joint op → the rank-ordered path) > static priors
 winner cache, the host tier, the circuit breaker and the
 health/fault/trace seams are not ported yet: a fault in the chosen tier
 propagates to the caller instead of degrading to the next tier. The
-priors' algorithm names other than ``native`` (``recursive_doubling``,
+alltoall, gather and scatter priors' names are all ported; those of the
+other operations other than ``native`` (``recursive_doubling``,
 ``binomial``, ``ring``, ...) are spmd algorithms the port does not have
 yet: they raise ``ArgumentError``.
+
+As in the JAX package there is no hand-kernel alltoall name: the
+alltoall kernel is reached through ``PallasColl``. A gather algorithm
+returns root's rows and a scatter algorithm takes root's buffer (see
+``spmd``).
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from ..core.errors import ArgumentError
 from ..ops import Op, lookup as op_lookup
 from . import spmd
 from .framework import COLL, compile_plan, rank_major_check
-from .xla import XlaColl, _dtype_key, _leaf_check
+from .xla import XlaColl, _dtype_key, _leaf_check, scatter_buffer
 
 _V = partial(config.register, "coll", "tuned")
 _large = _V("bcast_large_cutoff", type=int, default=1 << 20,
@@ -53,6 +60,22 @@ _force_reduce = _V("reduce_algorithm", type=str, default="",
 _force_reduce_scatter = _V("reduce_scatter_algorithm", type=str, default="",
                            description="Force a reduce_scatter algorithm "
                                        "by name")
+_force_alltoall = _V("alltoall_algorithm", type=str, default="",
+                     description="Force an alltoall algorithm by name")
+_force_gather = _V("gather_algorithm", type=str, default="",
+                   description="Force a gather algorithm by name")
+_force_scatter = _V("scatter_algorithm", type=str, default="",
+                    description="Force a scatter algorithm by name")
+_gather_binomial_max = _V("gather_binomial_max_bytes", type=int,
+                          default=6 << 10,
+                          description="Gather: per-rank bytes below which "
+                                      "the binomial tree is used")
+_alltoall_small = _V("alltoall_small_msg", type=int, default=256,
+                     description="Alltoall: bytes/dest below which bruck "
+                                 "is used")
+_alltoall_large = _V("alltoall_large_msg", type=int, default=32 << 10,
+                     description="Alltoall: bytes/dest above which "
+                                 "pairwise exchange is used")
 
 ALLREDUCE_ALGOS: dict[str, Callable] = {
     "native": spmd.allreduce_native,
@@ -63,6 +86,19 @@ BCAST_ALGOS: dict[str, Callable] = {"native": spmd.bcast_native}
 REDUCE_ALGOS: dict[str, Callable] = {"native": spmd.reduce_native}
 REDUCE_SCATTER_ALGOS: dict[str, Callable] = {
     "native": spmd.reduce_scatter_native,
+}
+ALLTOALL_ALGOS: dict[str, Callable] = {
+    "native": spmd.alltoall_native,
+    "pairwise": spmd.alltoall_pairwise,
+    "bruck": spmd.alltoall_bruck,
+}
+GATHER_ALGOS: dict[str, Callable] = {
+    "native": spmd.gather_native,
+    "binomial": spmd.gather_binomial,
+}
+SCATTER_ALGOS: dict[str, Callable] = {
+    "native": spmd.scatter_native,
+    "binomial": spmd.scatter_binomial,
 }
 
 
@@ -82,6 +118,7 @@ def _pallas_algos() -> None:
         return pr.allreduce_block_rd(b, op)
 
     ALLREDUCE_ALGOS["pallas_ring"] = pr.allreduce_block
+    ALLREDUCE_ALGOS["pallas_bidir"] = pr.allreduce_block_bidir
     ALLREDUCE_ALGOS["pallas_rd"] = _pallas_rd_guarded
     ALLREDUCE_ALGOS["pallas_ring_chunked"] = pr.allreduce_block_chunked
     ALLREDUCE_ALGOS["pallas_rsag"] = pr.allreduce_block_rsag
@@ -89,6 +126,8 @@ def _pallas_algos() -> None:
     ALLGATHER_ALGOS["pallas_ring"] = pr.allgather_block
     REDUCE_ALGOS["pallas_tree"] = pr.reduce_block
     REDUCE_SCATTER_ALGOS["pallas_ring"] = pr.reduce_scatter_block
+    GATHER_ALGOS["pallas_linear"] = pr.gather_block
+    SCATTER_ALGOS["pallas_linear"] = pr.scatter_block
 
 
 def is_pallas_algo(name: str) -> bool:
@@ -172,6 +211,35 @@ def decide_reduce_scatter(op: Op, nbytes: int, nranks: int) -> str:
     return priors.prior_reduce_scatter(op, nbytes, nranks)
 
 
+def decide_alltoall(nbytes_per_dest: int, nranks: int) -> str:
+    forced = _force_alltoall.value
+    if forced:
+        return forced
+    from .sched import priors
+
+    return priors.prior_alltoall(nbytes_per_dest, nranks)
+
+
+def decide_gather(nbytes: int, nranks: int) -> str:
+    forced = _force_gather.value
+    if forced:
+        return forced
+    from .sched import priors
+
+    return priors.prior_gather(nbytes, nranks)
+
+
+def decide_scatter(nbytes: int, nranks: int) -> str:
+    """Native (a reshard of root's buffer) unless forced: the tree and
+    kernel forms are reachable only by the forced var."""
+    forced = _force_scatter.value
+    if forced:
+        return forced
+    from .sched import priors
+
+    return priors.prior_scatter(nbytes, nranks)
+
+
 @COLL.register
 class TunedColl(XlaColl):
     """Decision layer over the algorithm space. Inherits the native
@@ -251,3 +319,42 @@ class TunedColl(XlaColl):
         key = ("reduce_scatter_block", algo, op.cache_key, tuple(x.shape),
                str(x.dtype))
         return compile_plan(comm, key, lambda b: fn(b, op))(x)
+
+    def alltoall(self, comm, x):
+        x = rank_major_check(comm, x, min_ndim=2)
+        if x.shape[1] != comm.size:
+            raise ArgumentError(
+                f"alltoall needs (size, size, ...) buffer, got "
+                f"{tuple(x.shape)}")
+        if comm.size == 1:
+            return x
+        per_dest = (x.numel() // (comm.size * comm.size)) * x.element_size()
+        algo = decide_alltoall(per_dest, comm.size)
+        fn = _algo(ALLTOALL_ALGOS, "alltoall", algo)
+        SPC.record(f"coll_alltoall_algo_{algo}")
+        key = ("alltoall", algo, tuple(x.shape), str(x.dtype))
+        return compile_plan(comm, key, fn)(x)
+
+    def gather(self, comm, x, root):
+        x = rank_major_check(comm, x)
+        if comm.size == 1:
+            return x[:, None][root]
+        algo = decide_gather(_nbytes(x), comm.size)
+        if algo == "native":
+            return super().gather(comm, x, root)
+        fn = _algo(GATHER_ALGOS, "gather", algo)
+        SPC.record(f"coll_gather_algo_{algo}")
+        key = ("gather", algo, root, tuple(x.shape), str(x.dtype))
+        return compile_plan(comm, key, lambda b: fn(b, root=root))(x)
+
+    def scatter(self, comm, x, root):
+        buf = scatter_buffer(comm, x)
+        if comm.size == 1:
+            return buf
+        algo = decide_scatter(_nbytes(buf), comm.size)
+        if algo == "native":
+            return super().scatter(comm, buf, root)
+        fn = _algo(SCATTER_ALGOS, "scatter", algo)
+        SPC.record(f"coll_scatter_algo_{algo}")
+        key = ("scatter", algo, root, tuple(buf.shape), str(buf.dtype))
+        return compile_plan(comm, key, lambda b: fn(b, root=root))(buf)

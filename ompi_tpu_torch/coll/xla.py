@@ -10,6 +10,8 @@ has no Pallas kernel on it.
 
 from __future__ import annotations
 
+import torch
+
 from ..core.errors import ArgumentError
 from ..ops import lookup as op_lookup
 from . import spmd
@@ -25,6 +27,16 @@ def _leaf_check(comm, x):
     for leaf in leaves:
         rank_major_check(comm, leaf)
     return x
+
+
+def scatter_buffer(comm, x) -> torch.Tensor:
+    """Root's ``(size, ...)`` scatter buffer (a tensor or numpy array) on
+    the comm's device, moved there if it lies elsewhere."""
+    arr = torch.as_tensor(x)
+    if arr.ndim < 1 or arr.shape[0] != comm.size:
+        raise ArgumentError(
+            f"scatter needs (size, ...) buffer, got {tuple(arr.shape)}")
+    return comm.put_rank_major(arr)
 
 
 def _dtype_key(x) -> tuple:
@@ -92,3 +104,28 @@ class XlaColl(CollComponent):
         plan = compile_plan(
             comm, key, lambda b: spmd.reduce_scatter_native(b, op))
         return plan(x)
+
+    def alltoall(self, comm, x):
+        x = rank_major_check(comm, x, min_ndim=2)
+        if x.shape[1] != comm.size:
+            raise ArgumentError(
+                f"alltoall needs (size, size, ...) buffer, got "
+                f"{tuple(x.shape)}")
+        if comm.size == 1:
+            return x
+        key = ("alltoall", "native", tuple(x.shape), str(x.dtype))
+        return compile_plan(comm, key, spmd.alltoall_native)(x)
+
+    def gather(self, comm, x, root):
+        """Root's rows of the allgather (built for root alone: see
+        ``spmd.gather_native``)."""
+        x = rank_major_check(comm, x)
+        key = ("gather", "native", tuple(x.shape), str(x.dtype))
+        return compile_plan(comm, key, spmd.gather_native)(x)
+
+    def scatter(self, comm, x, root):
+        """A reshard of root's (size, ...) buffer, one row per rank, into
+        a tensor of its own."""
+        buf = scatter_buffer(comm, x)
+        key = ("scatter", "native", tuple(buf.shape), str(buf.dtype))
+        return compile_plan(comm, key, spmd.scatter_native)(buf)

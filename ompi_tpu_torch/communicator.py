@@ -2,7 +2,8 @@
 
 Port of ``ompi_tpu/communicator.py`` (so far: construction, the
 per-communicator coll vtable, ``allreduce``, ``bcast``, ``reduce``,
-``allgather``, ``reduce_scatter_block``, ``check_rank``, ``dup``,
+``allgather``, ``reduce_scatter_block``, ``alltoall``, ``gather``,
+``scatter``, ``check_rank``, ``dup``,
 ``split``, the plan cache, the cid counter and ``_check_alive``; epochs
 and revocation come with the fault-tolerance slice).
 
@@ -119,6 +120,20 @@ class Communicator:
 
     def reduce_scatter_block(self, x, op="sum"):
         return self._coll_call("reduce_scatter_block", x, op)
+
+    def alltoall(self, x):
+        """(size, size, ...) rank-major -> (size, size, ...): rank r's
+        row s is rank s's block for rank r."""
+        return self._coll_call("alltoall", x)
+
+    def gather(self, x, root: int = 0):
+        """(size, ...) rank-major -> root's (size, ...) gathered rows."""
+        return self._coll_call("gather", x, self.check_rank(root))
+
+    def scatter(self, x, root: int = 0):
+        """Root's (size, ...) buffer -> (size, ...) rank-major, rank r
+        holding row r."""
+        return self._coll_call("scatter", x, self.check_rank(root))
 
     # -- construction of derived communicators ----------------------------
 

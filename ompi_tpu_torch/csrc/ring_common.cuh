@@ -1,7 +1,8 @@
 // Shared pieces of the collective kernels: the combine ops, the flag
 // primitives that stand for the Pallas semaphores, L1-bypassing
 // loads/stores for comm slots, the ring schedule (reduce-scatter,
-// allgather or both) and the cooperative launch.
+// allgather or both, in either ring direction), the byte copies of the
+// data-movement kernels and the cooperative launch.
 //
 // Ranks on one card. A rank-major buffer holds n virtual ranks in one
 // HBM; each rank is played by its own thread blocks (one per column
@@ -148,7 +149,12 @@ enum RingFlag { F_RECV = 0, F_CAP = 2, F_SEG = 4, RING_NSEM = 5 };
 enum RingPhase { PH_RS = 1, PH_AG = 2, PH_BOTH = 3 };
 
 // Block (r, s) of the grid plays rank r on column stripe s of every ring
-// block of W columns. Rank-major layouts: x is (n ranks, n blocks, W)
+// block of W columns; a grid of several groups of n x stripes blocks
+// (the bidirectional ring's two directions) repeats the mapping in each
+// group, and the caller gives each group its own x, out, comm and sems.
+// `dir` 1 sends to rank r+1, -1 to rank r-1, with the block indices
+// mirrored (the reference's bidirectional kernel: blk = r - dir(step+2)).
+// Rank-major layouts: x is (n ranks, n blocks, W)
 // and out the same for PH_BOTH; PH_RS writes out (n, W), each rank's
 // own reduced block; PH_AG reads x (n, W), each rank's own block. comm
 // is (n, stripes, 2, sw); sems is (n, stripes, RING_NSEM). The ring runs
@@ -166,13 +172,16 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
                                               T* __restrict__ out, T* comm,
                                               int* sems, int n, int stripes,
                                               long long W, long long seg,
-                                              int n_segs) {
+                                              int n_segs, int dir = 1) {
   constexpr bool kRS = (PHASE & PH_RS) != 0;
   constexpr bool kAG = (PHASE & PH_AG) != 0;
-  const int r = blockIdx.x / stripes;
-  const int s = blockIdx.x % stripes;
-  const int left = (r + n - 1) % n;
-  const int right = (r + 1) % n;
+  const int b = blockIdx.x % (n * stripes);
+  const int r = b / stripes;
+  const int s = b % stripes;
+  const int left = (r - dir + n) % n;
+  const int right = (r + dir + n) % n;
+  // Block index `r - dir * k` modulo n, for k >= 0.
+  auto ring_blk = [&](int k) { return ((r - dir * k) % n + n) % n; };
   const long long sw = (seg + stripes - 1) / stripes;
   const long long c0 = (long long)s * sw;
   const long long cw = c0 < seg ? (seg - c0 < sw ? seg - c0 : sw) : 0;
@@ -219,7 +228,7 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
       T* arrived = my_comm + nslot * sw;
       if (step < rs_steps) {
         // Reduce-scatter: fold this rank's block into the arrival.
-        const int blk = (r - step - 2 + 2 * n) % n;
+        const int blk = ring_blk(step + 2);
         const T* xb = xr + (long long)blk * W + off;
         T* ob = own + off;
         const bool last = step == n - 2;  // blk == r: own block finished
@@ -232,7 +241,7 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
         }
       } else {
         // Allgather: store the finished block that arrived.
-        const int blk = (r - (step - rs_steps) - 1 + 2 * n) % n;
+        const int blk = ring_blk(step - rs_steps + 1);
         T* ob = outr + (long long)blk * W + off;
         for (long long j = threadIdx.x; j < cw; j += blockDim.x)
           ob[j] = ld_cg(arrived + j);
@@ -245,6 +254,67 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
     }
   }
   if (SEGMENTED) wait(my_sem + F_SEG, 1);  // residual credit
+}
+
+// ---- data movement --------------------------------------------------------
+
+template <typename U>
+__device__ __forceinline__ void copy_units(char* dst, const char* src,
+                                           long long bytes) {
+  const U* s = reinterpret_cast<const U*>(src);
+  U* d = reinterpret_cast<U*>(dst);
+  const long long count = bytes / (long long)sizeof(U);
+  for (long long j = threadIdx.x; j < count; j += blockDim.x) d[j] = s[j];
+}
+
+// Whole block: copy `bytes` bytes from src to dst. In 16-byte vectors,
+// four loads in flight per thread before their stores, where both ends
+// and the length are 16-byte aligned; otherwise in units of the element
+// size `elem` (1, 2, 4 or 8 bytes; anything else byte by byte).
+__device__ __forceinline__ void copy_bytes(char* dst, const char* src,
+                                           long long bytes, int elem) {
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) |
+        (uintptr_t)bytes) & 15) == 0) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const long long nv = bytes >> 4;
+    constexpr int kUnroll = 4;
+    for (long long j0 = threadIdx.x; j0 < nv;
+         j0 += (long long)kUnroll * blockDim.x) {
+      uint4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long j = j0 + (long long)u * blockDim.x;
+        if (j < nv) v[u] = s[j];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long j = j0 + (long long)u * blockDim.x;
+        if (j < nv) d[j] = v[u];
+      }
+    }
+    return;
+  }
+  switch (elem) {
+    case 8: copy_units<unsigned long long>(dst, src, bytes); break;
+    case 4: copy_units<unsigned int>(dst, src, bytes); break;
+    case 2: copy_units<unsigned short>(dst, src, bytes); break;
+    default: copy_units<unsigned char>(dst, src, bytes); break;
+  }
+}
+
+// The bytes [c0, c0 + cw) of a `row`-byte row that stripe s of
+// `stripes` moves. Stripe starts are 16-byte multiples, so a row that
+// starts aligned is copied in vectors by every stripe.
+struct ByteStripe {
+  long long c0, cw;
+};
+__device__ __forceinline__ ByteStripe byte_stripe(long long row, int s,
+                                                  int stripes) {
+  long long sw = (row + stripes - 1) / stripes;
+  sw = (sw + 15) & ~15LL;
+  const long long c0 = (long long)s * sw;
+  return {c0, c0 < row ? (row - c0 < sw ? row - c0 : sw) : 0};
 }
 
 // Cooperative launch of `blocks` blocks of kThreads on `stream`: every

@@ -1,6 +1,7 @@
-"""The port's seven CUDA kernels on a card, each against its plain
+"""The port's eleven CUDA kernels on a card, each against its plain
 version: ring_allreduce, ring_allreduce_rd, ring_allreduce_chunked,
-ring_reduce_scatter, ring_allgather, tree_reduce and tree_bcast.
+ring_reduce_scatter, ring_allgather, tree_reduce, tree_bcast,
+ring_allreduce_bidir, ring_alltoall, linear_gather and linear_scatter.
 
 Marked ``gpu``: without a CUDA card every test here skips with a reason
 (the kernels have no CPU mode; their plain versions are tested on the
@@ -119,6 +120,40 @@ def test_trees_match_plain_on_card(cuda, n, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_bidir_matches_plain_on_card(cuda, n, dtype):
+    x = _input(n, 5000, dtype, cuda)  # ring blocks padded to 256 lanes
+    for op in OPS:
+        got = _launched_once(pr.BIDIR, lambda: pr.allreduce_block_bidir(x, op))
+        want = pr.allreduce_block_bidir(x, op,
+                                        bidir=pr.ring_allreduce_bidir_plain)
+        assert torch.equal(_bits(got), _bits(want)), (n, dtype, op)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT) + ["float64", "int8"])
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_data_movers_match_plain_on_card(cuda, n, dtype):
+    if dtype in TDT:
+        x = _input(n, n * 700, dtype, cuda).reshape(n, n, 700)
+    else:  # the byte copies at other element sizes and an odd width
+        x = _input(n, n * 333, "int32", cuda).reshape(n, n, 333).to(
+            getattr(torch, dtype))
+    got = _launched_once(pr.ALLTOALL, lambda: pr.ring_alltoall(x))
+    assert torch.equal(got, pr.ring_alltoall_plain(x))
+    assert torch.equal(got, x.transpose(0, 1))
+    flat = x[:, 1].contiguous()
+    for root in (0, n - 1):
+        got = _launched_once(pr.GATHER, lambda: pr.linear_gather(flat, root))
+        assert torch.equal(got, pr.linear_gather_plain(flat, root))
+        assert torch.equal(got, flat)
+        got = _launched_once(pr.SCATTER, lambda: pr.linear_scatter(flat, root))
+        assert torch.equal(got, pr.linear_scatter_plain(flat, root))
+        assert torch.equal(got, flat)
+
+
+@pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.ones(2, 2, 128, dtype=torch.float16, device=cuda)
     with pytest.raises(ArgumentError):
@@ -129,3 +164,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         pr.ring_allgather(x[:, 0])
     with pytest.raises(ArgumentError):
         pr.tree_bcast(x[:, 0].float(), root=2)
+    with pytest.raises(ArgumentError):
+        pr.ring_allreduce_bidir(x.float()[..., :127], "sum")  # odd blocks
+    with pytest.raises(ArgumentError):
+        pr.ring_alltoall(x[:, :1])
+    with pytest.raises(ArgumentError):
+        pr.linear_scatter(x[:, 0], root=2)

@@ -12,11 +12,16 @@ against the JAX package's Pallas kernels and a numpy ring-order oracle.
   float32/bfloat16/int32 on the port's simulators against a numpy
   oracle that folds each block in ring order (bfloat16 through
   ml_dtypes, which also computes in float32 and rounds once). Exact.
-- Interleavings: the ring and chunked simulators, and the ring's two
-  halves (reduce-scatter and allgather alone), under 200 seeded random
-  schedules at n in {3, 4, 8} must give the lock-step result exactly
-  with every flag back at 0; the reference's credit placement in the
-  same simulator must fail (the negative control).
+- Interleavings: the ring and chunked simulators, the ring's two
+  halves (reduce-scatter and allgather alone) and the bidirectional
+  ring, under 200 seeded random schedules at n in {3, 4, 8} must give
+  the lock-step result exactly with every flag back at 0; the
+  reference's credit placement in the same simulator must fail (the
+  negative control), as must the bidirectional ring at n = 2 with one
+  set of flags for both directions. The alltoall, gather and scatter
+  simulators likewise, with one flag per step, sender or receiver;
+  with a shared flag (the JAX package's docstrings say why) some wait
+  returns before the row it certifies has landed.
 
 The kernels themselves, on a card, are tested in test_torch_kernels.py.
 """
@@ -227,53 +232,119 @@ def test_layouts_match_the_jax_blocking():
 # ---------------------------------------------------------------------------
 
 def _ring_case(kernel, n):
-    """(input, simulate_ring keywords) of a ring kernel: the allreduce
-    ring, its chunked form, or one of its halves (reduce-scatter,
-    allgather)."""
+    """simulate(credit=..., rng=...) -> (out, residue) of a ring kernel:
+    the allreduce ring, its chunked form, one of its halves
+    (reduce-scatter, allgather), or the bidirectional ring."""
     blocks = torch.from_numpy(np.random.default_rng(n).standard_normal(
         (n, n, 256)).astype(np.float32))
+    op = lookup("sum")
+    if kernel == "bidir":
+        return lambda **kw: pr.simulate_ring_bidir(blocks, op, **kw)
+    x, kw0 = blocks, dict(seg_cols=128, segmented=True)  # two segments
     if kernel == "ring":
-        return blocks, dict(seg_cols=None, segmented=False)
-    if kernel == "rs":
-        return blocks, dict(phase="rs")
-    if kernel == "ag":
-        return blocks[:, 0].contiguous(), dict(phase="ag")
-    return blocks, dict(seg_cols=128, segmented=True)  # two segments
+        kw0 = dict(seg_cols=None, segmented=False)
+    elif kernel == "rs":
+        kw0 = dict(phase="rs")
+    elif kernel == "ag":
+        x, kw0 = blocks[:, 0].contiguous(), dict(phase="ag")
+    return lambda **kw: pr.simulate_ring(x, op, **kw0, **kw)
+
+
+RING_KERNELS = ["ring", "chunked", "rs", "ag", "bidir"]
 
 
 @pytest.mark.parametrize("n", [3, 4, 8])
-@pytest.mark.parametrize("kernel", ["ring", "chunked", "rs", "ag"])
+@pytest.mark.parametrize("kernel", RING_KERNELS)
 def test_port_protocol_exact_under_random_interleavings(kernel, n):
-    blocks, kw = _ring_case(kernel, n)
-    op = lookup("sum")
-    want, residue = pr.simulate_ring(blocks, op, **kw)
+    simulate = _ring_case(kernel, n)
+    want, residue = simulate()
     assert not residue
     for seed in range(200):
-        out, residue = pr.simulate_ring(blocks, op, rng=random.Random(seed),
-                                        **kw)
+        out, residue = simulate(rng=random.Random(seed))
         assert not residue, (seed, residue)
         assert torch.equal(out, want), seed
 
 
 @pytest.mark.parametrize("n", [3, 4, 8])
-@pytest.mark.parametrize("kernel", ["ring", "chunked", "rs", "ag"])
+@pytest.mark.parametrize("kernel", RING_KERNELS)
 def test_reference_credit_placement_fails_under_interleavings(kernel, n):
     """Negative control: the JAX package's credit placement
     (pallas_ring.py:263-267, :387-391; in the halves a post-seed credit,
-    :135-137 and :184-186, then :159-164 and :208-214) in the same
-    simulator loses a partial under some schedule — the interleaver has
-    teeth."""
-    blocks, kw = _ring_case(kernel, n)
-    op = lookup("sum")
-    want, _ = pr.simulate_ring(blocks, op, **kw)
-    lockstep, residue = pr.simulate_ring(blocks, op, credit="reference",
-                                         **kw)
+    :135-137 and :184-186, then :159-164 and :208-214; in the
+    bidirectional ring :664-668 and :700-705) in the same simulator
+    loses a partial under some schedule — the interleaver has teeth."""
+    simulate = _ring_case(kernel, n)
+    want, _ = simulate()
+    lockstep, residue = simulate(credit="reference")
     assert torch.equal(lockstep, want) and not residue
     bad = [seed for seed in range(200)
-           if not torch.equal(pr.simulate_ring(
-               blocks, op, credit="reference", rng=random.Random(seed),
-               **kw)[0], want)]
+           if not torch.equal(simulate(credit="reference",
+                                       rng=random.Random(seed))[0], want)]
     assert bad, "reference placement survived every schedule"
+
+
+def _faulty(simulate, rng) -> bool:
+    """Did a run end with a wrong result, a flag not back at 0 or a
+    deadlock?"""
+    try:
+        out, residue = simulate(rng=rng)
+    except RuntimeError:  # protocol deadlock
+        return True
+    return bool(residue) or not torch.equal(out, simulate()[0])
+
+
+def test_bidir_directions_need_their_own_flags():
+    """At n = 2 both directions signal the same neighbour: with their
+    own flags the bidirectional ring is exact on every schedule; with
+    one set of flags for both, some schedule goes wrong."""
+    blocks = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 2, 256)).astype(np.float32))
+    op = lookup("sum")
+    own = lambda **kw: pr.simulate_ring_bidir(blocks, op, **kw)  # noqa: E731
+    shared = lambda **kw: pr.simulate_ring_bidir(  # noqa: E731
+        blocks, op, shared_flags=True, **kw)
+    assert not any(_faulty(own, random.Random(seed)) for seed in range(200))
+    assert any(_faulty(shared, random.Random(seed)) for seed in range(200))
+
+
+def _mover_case(kind, n):
+    """(simulate(flags=..., rng=...), the result it must give) of a
+    data-movement kernel; gather and scatter at root n-1."""
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n, n, 64)).astype(np.float32))
+    if kind == "alltoall":
+        return (lambda **kw: pr.simulate_alltoall(x, **kw)), x.transpose(0, 1)
+    flat = x[:, 0].contiguous()
+    sim = pr.simulate_gather if kind == "gather" else pr.simulate_scatter
+    return (lambda **kw: sim(flat, n - 1, **kw)), flat
+
+
+@pytest.mark.parametrize("n", [3, 4, 8])
+@pytest.mark.parametrize("kind", ["alltoall", "gather", "scatter"])
+def test_data_mover_protocols_exact_under_random_interleavings(kind, n):
+    simulate, truth = _mover_case(kind, n)
+    for seed in [None] + list(range(200)):
+        out, residue = simulate(
+            rng=None if seed is None else random.Random(seed))
+        assert not residue, (seed, residue)
+        assert torch.equal(out, truth), seed
+
+
+@pytest.mark.parametrize("kind,n", [("alltoall", 8), ("gather", 4),
+                                    ("gather", 8), ("scatter", 4),
+                                    ("scatter", 8)])
+def test_shared_flag_lets_a_wait_return_early(kind, n):
+    """Negative control: with two flags rotated over the alltoall's
+    steps (pallas_ring.py:988-993), or one flag for all of the gather's
+    senders (:1042-1051) or the scatter's receivers, some wait returns
+    before the row it certifies has landed. (The alltoall's rotation is
+    safe up to n = 4: its step-3 writer has itself waited on a chain
+    that starts with the step-1 writer's store.)"""
+    simulate, _ = _mover_case(kind, n)
+    early = [seed for seed in range(200)
+             if any(k[0] == "early" for k in simulate(
+                 flags="shared", rng=random.Random(seed))[1])]
+    assert early, "a shared flag survived every schedule"
 
 
 def test_rd_protocol_exact_under_random_interleavings():
