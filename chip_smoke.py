@@ -6,11 +6,13 @@ CUDA card, ``nvcc`` and the repository's ``ompi_tpu_torch`` package;
 without a card, or without the package beside it, it exits non-zero
 and prints no result.
 
-The eleven kernels (``ompi_tpu_torch/csrc/``): ``ring_allreduce``,
+The thirteen kernels (``ompi_tpu_torch/csrc/``): ``ring_allreduce``,
 ``ring_allreduce_rd``, ``ring_allreduce_chunked``,
 ``ring_reduce_scatter``, ``ring_allgather``, ``tree_reduce``,
 ``tree_bcast``, ``ring_allreduce_bidir``, ``ring_alltoall``,
-``linear_gather`` and ``linear_scatter``.
+``linear_gather``, ``linear_scatter``, ``sched_table`` (the schedule
+compiler's table-driven kernel) and ``selfdma_chunked`` (the one-rank
+chunked identity).
 
 Phases (any failure raises and exits non-zero):
 
@@ -26,13 +28,21 @@ Phases (any failure raises and exits non-zero):
    at roots 0 and n-1); allgather, tree bcast, alltoall, gather and
    scatter for the three dtypes (gather, scatter and bcast at roots 0
    and n-1), and the three data movers for float64, float16 and int8
-   at odd row widths (their element-sized copies).
+   at odd row widths (their element-sized copies); ``sched_table`` on
+   eight programs (ring, ring with a non-identity order, segmented
+   ring at 2 and 4 segments, reduce-scatter, allgather, a 3-member
+   ``fuse_schedules``, a ``fuse_window``) at n in {2, 3, 4, 8}, every
+   op and dtype, ragged chunks; ``selfdma_chunked`` at 1, 3 and 8
+   segments in six dtypes.
 3. The main path at full width, n = 8, through ``init(nranks=8)`` and
    two vtable routes: a ``world.dup()`` with
    ``coll_pallas_priority=100`` (PallasColl) and one with TunedColl and
-   ``coll_tuned_<op>_algorithm`` forcing each kernel's name. Launch
-   counters are zeroed just before and read just after; every kernel
-   must have launched, and every result must equal its plain version.
+   ``coll_tuned_<op>_algorithm`` forcing each kernel's name. It runs as
+   five paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
+   bidirectional ring; alltoall/gather/scatter; the schedule compiler);
+   the launch counters are zeroed just before each path and read just
+   after it, every kernel of the path must have launched there, and
+   every result must equal its plain version.
    - ``comm.allreduce(x, "sum")``, float32, at 4 KiB (recursive
      doubling), 1 MiB (ring) and 1 GiB (chunked, an 8 GiB rank-major
      buffer) per rank;
@@ -57,6 +67,24 @@ Phases (any failure raises and exits non-zero):
      pairwise exchange at 128 MiB per destination, no kernel), checked
      equal to the kernel's result. Each result is also checked against
      ``x.transpose(0, 1)``, ``x`` and root's buffer.
+   - the schedule compiler through TunedColl: ``sched_pallas_ring`` at
+     1 MiB and ``sched_pallas_ring_seg`` at 1 GiB per rank (allreduce),
+     ``sched_pallas_rs`` at 1 GiB sent per rank
+     (``reduce_scatter_block``), each bitwise its plain version;
+     ``pallas_ring_chunked`` forced on a one-rank communicator
+     (``world.split``) at 1 GiB, the one-rank kernel, equal to its input
+     in a new tensor; ``sched_ring``, ``sched_rd``, ``sched_hier`` and
+     the spmd ``ring`` at 1 MiB per rank, each bitwise the same call on a
+     CPU communicator over a copy of the input;
+   - the winner cache: a measure-mode ``autotune.tune`` on the card
+     with ``include_pallas`` at 4 KiB, 1 MiB and 1 GiB per rank (every
+     candidate must get a time; the cache goes to
+     ``_archive/sched_cache``), its winners and times on one JSON
+     line, then ``comm.allreduce`` with no forced name at each size:
+     the decision must hit the cache (``sched_cache_hits``), take the
+     winner and give the winner's bits called by name; last, the cache
+     consult's host cost at 4 KiB per rank (``dispatch_cost``), on one
+     JSON line.
    Each case frees its input, output and plain result before the next;
    ``max_memory_allocated`` is printed.
 4. A ``kernels`` JSON line, one row per kernel at its main-path size:
@@ -67,7 +95,11 @@ Phases (any failure raises and exits non-zero):
    PyTorch call computing the same function as a library yardstick the
    port never calls. The kernels of the rooted, half-ring and
    data-movement collectives also carry their p50 at 4 KiB per rank
-   (``small_ms``).
+   (``small_ms``), and so do the two new ones. ``sched_table``'s row is
+   the segmented-ring program at 1 GiB per rank; its ``also`` list
+   holds the ring program at 1 MiB (beside ``ring_allreduce``, the same
+   protocol hard-coded) and the reduce-scatter program at 1 GiB sent
+   per rank; ``selfdma_chunked``'s is n = 1 at 1 GiB.
 5. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -126,7 +158,17 @@ SOURCES = {
     "ring_alltoall": "ompi_tpu/coll/pallas_ring.py:983",
     "linear_gather": "ompi_tpu/coll/pallas_ring.py:1042",
     "linear_scatter": "ompi_tpu/coll/pallas_ring.py:1122",
+    "sched_table": "ompi_tpu/coll/sched/pallas_lower.py:439",
+    "selfdma_chunked": "ompi_tpu/coll/pallas_ring.py:405",
 }
+SCHED_KERNELS = ("sched_table", "selfdma_chunked")
+# The sched path's forced names: allreduce at 1 MiB and 1 GiB per rank,
+# reduce_scatter_block at 1 GiB sent per rank.
+SCHED_FORCED = (("sched_pallas_ring", MIB), ("sched_pallas_ring_seg", GIB),
+                ("sched_pallas_rs", GIB))
+# Names checked bitwise against the same call on a CPU communicator.
+CPU_NAMES = ("sched_ring", "sched_rd", "sched_hier", "ring")
+TUNE_SIZES = (4 * KIB, MIB, GIB)
 
 
 def log(msg: str) -> None:
@@ -287,6 +329,73 @@ def kernel_vs_plain(pr, gen) -> None:
                 checked += 1
     log(f"[kernel-vs-plain] data movers at other element sizes: {checked} "
         f"cases bitwise equal, all semaphores 0 ({time.time() - t0:.1f} s)")
+
+
+def table_programs(ir, pl, n):
+    """The table kernel's eight programs at n ranks."""
+    order = list(range(0, n, 2)) + list(range(1, n, 2))
+    return {
+        "ring": ir.ring(n),
+        "ring+order": ir.ring(n, order=order),
+        "seg2": ir.segmented_ring(n, 2),
+        "seg4": ir.segmented_ring(n, 4),
+        "rs": ir.reduce_scatter(n),
+        "ag": ir.allgather(n),
+        "fuse3": pl.fuse_schedules("fuse3", [ir.ring(n),
+                                             ir.segmented_ring(n, 2),
+                                             ir.ring(n, order=order)]),
+        "window": pl.fuse_window(
+            "window", [ir.allgather(n), ir.allgather(n, order=order)],
+            [ir.reduce_scatter(n), ir.reduce_scatter(n, order=order)]),
+    }
+
+
+def sched_kernel_vs_plain(pr, gen) -> None:
+    """sched_table on its programs and selfdma_chunked at several
+    segment counts, each bitwise against its plain version."""
+    import torch
+    from ompi_tpu_torch.coll.sched import ir
+    from ompi_tpu_torch.coll.sched import pallas_lower as pl
+    from ompi_tpu_torch.core.counters import KERNELS
+
+    t0 = time.time()
+    checked = 0
+    for n in (2, 3, 4, 8):
+        for name, sched in table_programs(ir, pl, n).items():
+            prog = pl.analyze(sched)
+            for dtype in (torch.int32, torch.float32, torch.bfloat16):
+                for op in ("sum", "max", "min", "prod") if name != "ag" \
+                        else ("sum",):
+                    # ragged chunks, alternating between a short and a
+                    # long one
+                    chunk = (33, 1000)[checked % 2]
+                    data = random_rank_major((n, prog.nchunks, chunk),
+                                             dtype, gen)
+                    got = pl.sched_table(prog, data, op)
+                    torch.cuda.synchronize()
+                    check_sems(KERNELS["sched_table"])
+                    equal_or_raise(got, pl.sched_table_plain(prog, data, op),
+                                   f"sched_table {name} n={n} {dtype} {op} "
+                                   f"chunk={chunk}")
+                    checked += 1
+    log(f"[kernel-vs-plain] sched_table: {checked} cases bitwise equal, "
+        f"all semaphores 0 ({time.time() - t0:.1f} s)")
+    t0 = time.time()
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.float64,
+                  torch.float16, torch.int8):
+        for segs, seg_cols in ((1, 4096), (3, 1000), (8, 333)):
+            x = random_rank_major((1, segs * seg_cols), dtype, gen)
+            got = pr.selfdma_chunked(x, seg_cols)
+            torch.cuda.synchronize()
+            if got.data_ptr() == x.data_ptr() or not torch.equal(got, x):
+                raise AssertionError(f"selfdma_chunked {dtype} {segs} "
+                                     f"segments: not a copy of its input")
+            equal_or_raise(got, pr.selfdma_chunked_plain(x, seg_cols),
+                           f"selfdma_chunked {dtype} segments={segs}")
+            checked += 1
+    log(f"[kernel-vs-plain] selfdma_chunked: {checked} cases bitwise equal "
+        f"({time.time() - t0:.1f} s)")
 
 
 def allreduce_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
@@ -557,9 +666,211 @@ def move_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
     return errs
 
 
+def sched_plain(pl, sched_mod, algo: str):
+    """The plain version of a ``sched_pallas_*`` name, on the layout its
+    registered wrapper uses."""
+    sched = sched_mod.build_schedule(algo, N)
+    return pl._make_wrapper(pl.analyze(sched), sched.name,
+                            table=pl.sched_table_plain)
+
+
+def sched_path(world, tcomm, pr, config, counters, gen) -> dict:
+    """The schedule compiler on the allreduce and reduce-scatter paths:
+    the forced names through TunedColl, the one-rank chunked kernel,
+    the interpreted schedules against the CPU, then the winner cache
+    from a measure-mode sweep on the card; kernel -> max error."""
+    import torch
+    from ompi_tpu_torch.communicator import Communicator
+    from ompi_tpu_torch.coll import sched as sched_mod
+    from ompi_tpu_torch.coll import tuned
+    from ompi_tpu_torch.coll.sched import autotune
+    from ompi_tpu_torch.coll.sched import pallas_lower as pl
+    from ompi_tpu_torch.core.counters import SPC
+    from ompi_tpu_torch.group import Group
+    from ompi_tpu_torch.runtime import mesh
+
+    errs = {k: 0.0 for k in SCHED_KERNELS}
+    force = "coll_tuned_allreduce_algorithm"
+    for algo, nbytes in SCHED_FORCED:
+        rs = algo == "sched_pallas_rs"
+        var = "coll_tuned_reduce_scatter_algorithm" if rs else force
+        shape = (N, N, nbytes // 4 // N) if rs else (N, nbytes // 4)
+        x = random_rank_major(shape, torch.float32, gen)
+        config.VARS.set(var, algo)
+        t0 = time.time()
+        out = tcomm.reduce_scatter_block(x, "sum") if rs \
+            else tcomm.allreduce(x, "sum")
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        config.VARS.set(var, "")
+        check_sems(counters.KERNELS["sched_table"])
+        what = f"TunedColl[{algo}] {nbytes} B/rank"
+        if not (bool(torch.isfinite(out).all()) and torch.allclose(
+                out, x.sum(0) if rs else x.sum(0, keepdim=True).expand_as(x),
+                rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f"{what}: wrong result")
+        want = sched_plain(pl, sched_mod, algo)(x, "sum")
+        errs["sched_table"] = max(errs["sched_table"],
+                                  equal_or_raise(out, want, what))
+        log(f"[main] {what} x {N} ranks: {dt * 1e3:.3f} ms host wall (first "
+            f"call), equal to plain and to the torch check")
+        del x, out, want
+        torch.cuda.empty_cache()
+
+    # The one-rank kernel: a forced name runs on a one-rank communicator.
+    solo = world.split([0] + [-1] * (N - 1))[0]
+    x = random_rank_major((1, GIB // 4), torch.float32, gen)
+    config.VARS.set(force, "pallas_ring_chunked")
+    t0 = time.time()
+    out = solo.allreduce(x, "sum")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    config.VARS.set(force, "")
+    if out.data_ptr() == x.data_ptr() or not torch.equal(out, x):
+        raise AssertionError("one-rank pallas_ring_chunked: not a copy of "
+                             "its input")
+    want = pr.allreduce_block_chunked(x, "sum",
+                                      selfdma=pr.selfdma_chunked_plain)
+    errs["selfdma_chunked"] = equal_or_raise(out, want, "one-rank chunked")
+    log(f"[main] TunedColl[pallas_ring_chunked] one-rank communicator, "
+        f"{GIB} B: {dt * 1e3:.3f} ms host wall (first call), a new tensor "
+        f"equal to its input and to plain")
+    del x, out, want
+    torch.cuda.empty_cache()
+
+    # The interpreted schedules and the spmd ring: the same call on a
+    # CPU communicator over a copy of the input.
+    cpu = Communicator(Group(range(N)),
+                       mesh.discover(N, torch.device("cpu")), name="CPU")
+    x = random_rank_major((N, MIB // 4), torch.float32, gen)
+    xc = x.cpu()
+    for algo in CPU_NAMES:
+        config.VARS.set(force, algo)
+        out = tcomm.allreduce(x, "sum")
+        ref = cpu.allreduce(xc, "sum")
+        config.VARS.set(force, "")
+        equal_or_raise(out.cpu(), ref, f"TunedColl[{algo}] card vs CPU")
+        log(f"[main] TunedColl[{algo}] {MIB} B/rank x {N} ranks: bitwise "
+            f"the same call on the CPU")
+    cpu.free()
+    del x, xc
+
+    # The winner cache: a measure-mode sweep on the card, then the
+    # unforced route at each size.
+    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "_archive", "sched_cache")
+    config.VARS.set("coll_sched_cache_dir", cache_dir)
+    t0 = time.time()
+    res = autotune.tune(N, comm=tcomm, mode="measure", include_pallas=True,
+                        sizes=TUNE_SIZES)
+    dt = time.time() - t0
+    allowed, _ = autotune.candidates("allreduce", N, include_pallas=True)
+    for point, times in res["times"].items():
+        if set(times) != set(allowed):
+            raise AssertionError(f"autotune {point}: no time for "
+                                 f"{sorted(set(allowed) - set(times))}")
+    if len(res["times"]) != len(TUNE_SIZES):
+        raise AssertionError(f"autotune timed {sorted(res['times'])}")
+    print(json.dumps({"autotune": {
+        "winners": res["winners"], "seconds": res["times"],
+        "path": res["path"], "digest": res["digest"]}}), flush=True)
+    log(f"[main] measure-mode autotune: {len(allowed)} candidates x "
+        f"{len(TUNE_SIZES)} sizes, every candidate timed, {dt:.1f} s")
+    torch.cuda.empty_cache()
+    from ompi_tpu_torch.coll.sched import cache
+
+    cache.CACHE.clear()  # the unforced route loads the saved file
+    for nbytes in TUNE_SIZES:
+        x = random_rank_major((N, nbytes // 4), torch.float32, gen)
+        key = cache.cache_key("allreduce", nbytes, N, torch.float32,
+                              autotune.fingerprint())
+        winner = res["winners"][key]
+        hits = SPC.read("sched_cache_hits")
+        out = tcomm.allreduce(x, "sum")
+        if SPC.read("sched_cache_hits") != hits + 1:
+            raise AssertionError(f"{nbytes} B/rank: the decision did not "
+                                 f"hit the winner cache")
+        if tuned.decide_allreduce(tuned.op_lookup("sum"), nbytes, N,
+                                  dtype=x.dtype) != winner:
+            raise AssertionError(f"{nbytes} B/rank: decision is not the "
+                                 f"cached winner {winner}")
+        config.VARS.set(force, winner)
+        named = tcomm.allreduce(x, "sum")
+        config.VARS.set(force, "")
+        torch.cuda.synchronize()
+        equal_or_raise(out, named, f"cached {winner} vs forced")
+        log(f"[main] TunedColl unforced {nbytes} B/rank: the cache's "
+            f"{winner}, bitwise {winner} called by name")
+        del x, out, named
+        torch.cuda.empty_cache()
+    dispatch_cost(tcomm, config, cache, cache_dir,
+                  res["winners"][cache.cache_key(
+                      "allreduce", 4 * KIB, N, torch.float32,
+                      autotune.fingerprint())], gen)
+    config.VARS.set("coll_sched_cache_dir", "")
+    return errs
+
+
+def dispatch_cost(tcomm, config, cache, cache_dir, winner, gen) -> None:
+    """The winner-cache consult's host cost at 4 KiB per rank through
+    TunedColl, in four arms interleaved in rounds: the saved cache
+    loaded (a hit on ``winner``), ``winner`` forced (no consult), no
+    cache (an untuned process: a miss, then the priors) and the consult
+    off (the priors); ten rounds, each in another order. Hit against
+    forced and untuned against off run the same algorithm, so each
+    difference is the consult. Per arm: the
+    p50 host time of ``comm.allreduce`` from launch to synchronize, and
+    the mean host time of ``decide_allreduce`` alone."""
+    import torch
+    from ompi_tpu_torch.coll import tuned
+    from ompi_tpu_torch.core.counters import SPC
+
+    x = random_rank_major((N, 4 * KIB // 4), torch.float32, gen)
+    op = tuned.op_lookup("sum")
+    empty = os.path.join(os.path.dirname(cache_dir), "sched_cache_empty")
+    force = "coll_tuned_allreduce_algorithm"
+    arms = {"hit": {"coll_sched_cache_dir": cache_dir},
+            "forced": {"coll_sched_cache_dir": cache_dir, force: winner},
+            "untuned": {"coll_sched_cache_dir": empty},
+            "off": {"coll_sched_cache_enable": False}}
+    calls = {arm: [] for arm in arms}
+    decides = {arm: [] for arm in arms}
+    for rnd in range(10):
+        order = list(arms)[rnd % 4:] + list(arms)[:rnd % 4]
+        for arm in order if rnd % 2 else order[::-1]:
+            values = arms[arm]
+            cache.CACHE.clear()
+            for var, value in values.items():
+                config.VARS.set(var, value)
+            tcomm.allreduce(x, "sum")  # the load attempt, once per arm
+            torch.cuda.synchronize()
+            hits = SPC.read("sched_cache_hits")
+            for _ in range(40):
+                t0 = time.perf_counter()
+                tcomm.allreduce(x, "sum")
+                torch.cuda.synchronize()
+                calls[arm].append((time.perf_counter() - t0) * 1e6)
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                tuned.decide_allreduce(op, 4 * KIB, N, dtype=x.dtype)
+            decides[arm].append((time.perf_counter() - t0) / 2000 * 1e6)
+            if (SPC.read("sched_cache_hits") - hits) != (
+                    2040 if arm == "hit" else 0):
+                raise AssertionError(f"dispatch arm {arm}: wrong cache hits")
+            config.VARS.set(force, "")
+            config.VARS.set("coll_sched_cache_enable", True)
+    out = {"winner": winner,
+           "allreduce_p50_us": {a: statistics.median(v)
+                                for a, v in calls.items()},
+           "decide_mean_us": {a: statistics.median(v)
+                              for a, v in decides.items()}}
+    print(json.dumps({"dispatch_4k": out}), flush=True)
+    log(f"[main] TunedColl 4 KiB/rank host us: {out}")
+
+
 def main_path(tt, pr, config) -> tuple[dict, dict]:
-    """Both vtable routes at full size; returns (kernel -> max error,
-    kernel -> launches on the main path)."""
+    """Both vtable routes at full size, path by path; returns (kernel ->
+    max error, kernel -> launches on its path)."""
     import torch
     from ompi_tpu_torch.core import counters
 
@@ -576,16 +887,32 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
         if tcomm._coll[opname][0].NAME != "tuned":
             raise AssertionError(f"tuned component not selected: {opname}")
 
-    counters.reset_launches()
-    errs = allreduce_path(pcomm, tcomm, pr, config, counters, gen)
-    errs.update(coll_path(pcomm, tcomm, pr, config, counters, gen))
-    errs["ring_allreduce_bidir"] = bidir_path(pcomm, tcomm, pr, config,
-                                              counters, gen)
-    errs.update(move_path(pcomm, tcomm, pr, config, counters, gen))
-    launches = counters.launches()
-    for kernel in SOURCES:
-        if launches.get(kernel, 0) < 1:
-            raise AssertionError(f"main path never launched {kernel}")
+    paths = (
+        (tuple(MAIN_SIZES), lambda: allreduce_path(
+            pcomm, tcomm, pr, config, counters, gen)),
+        (tuple(COLL_CASES), lambda: coll_path(
+            pcomm, tcomm, pr, config, counters, gen)),
+        (("ring_allreduce_bidir",), lambda: {
+            "ring_allreduce_bidir": bidir_path(pcomm, tcomm, pr, config,
+                                               counters, gen)}),
+        (tuple(MOVE_CASES), lambda: move_path(
+            pcomm, tcomm, pr, config, counters, gen)),
+        (SCHED_KERNELS, lambda: sched_path(world, tcomm, pr, config,
+                                           counters, gen)),
+    )
+    errs, launches = {}, {}
+    for kernels, drive in paths:
+        counters.reset_launches()
+        errs.update(drive())
+        got = counters.launches()
+        for kernel in kernels:
+            if got.get(kernel, 0) < 1:
+                raise AssertionError(f"main path never launched {kernel}")
+            launches[kernel] = got[kernel]
+        log(f"[main] launches on this path: "
+            f"{ {k: got[k] for k in kernels} }")
+    if set(launches) != set(SOURCES):
+        raise AssertionError(f"paths cover {sorted(launches)}")
     tt.finalize()
     return errs, launches
 
@@ -608,12 +935,54 @@ def p50_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def sched_case(program: str, nbytes: int, gen):
+    """(kernel call, plain call, library call, bound bytes) of the table
+    kernel on ``program`` ("ring", "seg" or "rs", the programs behind
+    sched_pallas_ring, _ring_seg and _rs) at ``nbytes`` per rank (sent,
+    for the reduce-scatter), on its registered wrapper's layout."""
+    import torch
+    from ompi_tpu_torch.coll import sched as sched_mod
+    from ompi_tpu_torch.coll.sched import pallas_lower as pl
+
+    n = N
+    algo = {"ring": "sched_pallas_ring", "seg": "sched_pallas_ring_seg",
+            "rs": "sched_pallas_rs"}[program]
+    prog = pl.analyze(sched_mod.build_schedule(algo, n))
+    if program == "rs":
+        x = random_rank_major((n, n, nbytes // 4 // n), torch.float32, gen)
+        data, library = x, lambda: x.sum(0)
+        bound = (n + 1) * nbytes
+    else:
+        x = random_rank_major((n, nbytes // 4), torch.float32, gen)
+        # sizes are multiples of nchunks x 128 elements: no padding
+        data = x.reshape(n, prog.nchunks, -1)
+        library = lambda: x.sum(0, keepdim=True).expand_as(x).contiguous()  # noqa: E731
+        bound = 2 * n * nbytes
+    return (lambda: pl.sched_table(prog, data, "sum"),
+            lambda: pl.sched_table_plain(prog, data, "sum"), library, bound)
+
+
 def timed_case(pr, kernel, nbytes, gen):
     """(kernel call, plain call, library call, bound bytes, dtype, op) at
     ``nbytes`` per rank, on the kernel's own layout."""
     import torch
 
     n = N
+    if kernel == "sched_table":
+        # the main row: the segmented program (small sizes: the ring's)
+        fn, plain, library, bound = sched_case(
+            "seg" if nbytes >= GIB else "ring", nbytes, gen)
+        return fn, plain, library, bound, "float32", "sum"
+    if kernel == "selfdma_chunked":
+        x = random_rank_major((1, nbytes // 4), torch.float32, gen)
+        rows, seg_rows = pr._chunked_layout(nbytes // 4, 1, torch.float32,
+                                            MIB)
+        if rows * pr.LANES != x.shape[1]:
+            raise AssertionError(f"{nbytes} B is not whole segments")
+        seg = seg_rows * pr.LANES
+        return (lambda: pr.selfdma_chunked(x, seg),
+                lambda: pr.selfdma_chunked_plain(x, seg),
+                lambda: x.clone(), 2 * nbytes, "float32", None)
     if kernel in MAIN_SIZES:
         x = random_rank_major((n, nbytes // 4), torch.float32, gen)
         if kernel == "ring_allreduce_rd":
@@ -681,7 +1050,8 @@ def measure(pr, gen, errs, launches) -> list:
     rows = []
     sizes = dict(MAIN_SIZES, **{k: GIB for k in COLL_CASES},
                  ring_allreduce_bidir=BIDIR_BYTES,
-                 **{k: GIB for k in MOVE_CASES})
+                 **{k: GIB for k in MOVE_CASES},
+                 **{k: GIB for k in SCHED_KERNELS})
     for kernel, nbytes in sizes.items():
         fn, plain, library, nbytes_moved, dtype, op = timed_case(
             pr, kernel, nbytes, gen)
@@ -696,16 +1066,36 @@ def measure(pr, gen, errs, launches) -> list:
             "max_abs_err": errs[kernel], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms, "bytes_per_rank": nbytes,
-            "nranks": N, "dtype": dtype, "op": op,
+            "nranks": 1 if kernel == "selfdma_chunked" else N,
+            "dtype": dtype, "op": op,
         }
         del fn, plain, library
         torch.cuda.empty_cache()
         extra = ""
-        if kernel in COLL_CASES or kernel in MOVE_CASES:
+        if kernel in COLL_CASES or kernel in MOVE_CASES \
+                or kernel in SCHED_KERNELS:
             fn, _, _, _, _, _ = timed_case(pr, kernel, 4 * KIB, gen)
             row["small_ms"] = p50_ms(fn, KERNEL_REPS)
             extra = f", {row['small_ms']:.4f} ms at 4 KiB/rank"
             del fn
+        if kernel == "sched_table":
+            row["program"] = "segmented_ring(8, 2)"
+            row["also"] = []
+            for program, size in (("ring", MIB), ("rs", GIB)):
+                fn, plain, library, bound = sched_case(program, size, gen)
+                also = {"program": program, "bytes_per_rank": size,
+                        "ms": p50_ms(fn, KERNEL_REPS),
+                        "plain_ms": p50_ms(plain, 3 if size >= GIB else 10),
+                        "bound_ms": bound / HBM_BYTES_PER_S * 1e3,
+                        "bound_by": "bytes",
+                        "library_ms": p50_ms(library, KERNEL_REPS)}
+                row["also"].append(also)
+                extra += (f"; {program} at {size} B/rank {also['ms']:.4f} ms"
+                          f" (bound {also['bound_ms']:.4f}, plain "
+                          f"{also['plain_ms']:.3f}, library "
+                          f"{also['library_ms']:.4f})")
+                del fn, plain, library
+                torch.cuda.empty_cache()
         rows.append(row)
         log(f"[time] {kernel}: {ms:.4f} ms p50 at {nbytes} B/rank (bound "
             f"{bound_ms:.4f} ms, plain {plain_ms:.3f} ms, library "
@@ -751,6 +1141,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernel_vs_plain(pr, gen)
+    sched_kernel_vs_plain(pr, gen)
     torch.cuda.reset_peak_memory_stats()
     errs, launches = main_path(tt, pr, config)
     log(f"[main] launches on the main path: {launches}")

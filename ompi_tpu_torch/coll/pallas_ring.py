@@ -12,7 +12,9 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
   combine.
 - ``ring_allreduce_chunked`` (``_allreduce_chunked_kernel``): the ring
   streamed in segments with a per-segment credit, so comm scratch stays
-  at n·2·segment bytes however large the message.
+  at n·2·segment bytes however large the message; at n == 1
+  ``selfdma_chunked`` (``_selfdma_chunked_kernel``) runs the same
+  segments through an input copy and an output copy, the identity.
 - ``ring_reduce_scatter`` (``_reduce_scatter_kernel``) and
   ``ring_allgather`` (``_allgather_kernel``): the two halves of the
   ring, n-1 steps each; one after the other they are the
@@ -125,6 +127,7 @@ BIDIR = KernelCounter("ring_allreduce_bidir")
 ALLTOALL = KernelCounter("ring_alltoall")
 GATHER = KernelCounter("linear_gather")
 SCATTER = KernelCounter("linear_scatter")
+SELFDMA = KernelCounter("selfdma_chunked")
 
 _OP_CODES = {"sum": 0, "prod": 1, "max": 2, "min": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -600,6 +603,12 @@ _ARGTYPES = {
     # x, out, comm, sems, n, stripes, L, root, elem size, dev, stream
     "linear_gather": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
     "linear_scatter": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, tables, info, rounds, nchunks,
+    # chunk, kind, op, dtype, dev, stream
+    "sched_table": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _LL, _I, _I,
+                    _I, _I, _P],
+    # x, out, comm, blocks, seg bytes, n_segs, elem size, dev, stream
+    "selfdma_chunked": [_P, _P, _P, _I, _LL, _I, _I, _I, _P],
 }
 
 
@@ -640,20 +649,23 @@ def _stripes(n: int, cols: int, sm_count: int) -> int:
 
 def _launch(name: str, counter: KernelCounter, x: torch.Tensor,
             out_shape: tuple, cols: int, slots: int, nsem: int,
-            scalars: tuple, codes: tuple, dirs: int = 1) -> torch.Tensor:
-    """Launch csrc/<name>.cu on x into a new ``out_shape`` tensor. Each
-    rank is striped over blocks of ``cols`` columns, in ``dirs`` groups
-    of n x stripes blocks (two for the bidirectional ring); the comm
-    scratch holds ``slots`` stripe-wide slots per stripe (the kernel
-    lays them out) and the flags are (dirs, n, stripes, nsem) int32,
-    zeroed here on every launch. ``codes`` are the op and dtype codes
-    (or the element size) the C entry takes after ``scalars``."""
+            scalars: tuple, codes: tuple, dirs: int = 1,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch csrc/<name>.cu on x into a new ``out_shape`` tensor (or
+    into ``out``, which the kernel updates). Each rank is striped over
+    blocks of ``cols`` columns, in ``dirs`` groups of n x stripes blocks
+    (two for the bidirectional ring); the comm scratch holds ``slots``
+    stripe-wide slots per stripe (the kernel lays them out) and the
+    flags are (dirs, n, stripes, nsem) int32, zeroed here on every
+    launch. ``codes`` are the op and dtype codes (or the element size)
+    the C entry takes after ``scalars``."""
     cap = require_kernel_device(x)
     n = x.shape[0]
     stripes = _stripes(n * dirs, cols, cap.sm_count)
     sw = -(-cols // stripes)
     x = x.contiguous()
-    out = x.new_empty(out_shape)
+    if out is None:
+        out = x.new_empty(out_shape)
     comm = x.new_empty(slots * stripes * sw)
     sems = torch.zeros(dirs * n * stripes * nsem, dtype=torch.int32,
                        device=x.device)
@@ -692,6 +704,45 @@ def ring_allreduce_chunked(blocks: torch.Tensor, op, seg_cols: int
     return _launch("ring_allreduce_chunked", CHUNKED, blocks, blocks.shape,
                    seg_cols, 2 * n, RING_NSEM, (W, seg_cols, W // seg_cols),
                    _codes(op, blocks.dtype))
+
+
+def selfdma_chunked_plain(x: torch.Tensor, seg_cols: int) -> torch.Tensor:
+    """The kernel's two copies per segment, in torch: the input segment
+    into comm slot si % 2, that slot into the output."""
+    out = torch.empty_like(x)
+    comm = x.new_empty((2, seg_cols))
+    for si in range(x.shape[1] // seg_cols):
+        cols = slice(si * seg_cols, (si + 1) * seg_cols)
+        comm[si % 2] = x[0, cols]
+        out[0, cols] = comm[si % 2]
+    return out
+
+
+def selfdma_chunked(x: torch.Tensor, seg_cols: int) -> torch.Tensor:
+    """(1, W) one-rank buffer -> a new (1, W) tensor equal to it, any
+    dtype, streamed in segments of ``seg_cols`` columns through two comm
+    slots: the n == 1 case of the chunked ring."""
+    if x.ndim != 2 or x.shape[0] != 1:
+        raise ArgumentError(
+            f"one-rank chunked input must be (1, W), got {tuple(x.shape)}")
+    W = x.shape[1]
+    if seg_cols <= 0 or W % seg_cols:
+        raise ArgumentError(f"segment {seg_cols} does not divide {W}")
+    if not x.is_cuda:
+        return selfdma_chunked_plain(x, seg_cols)
+    cap = require_kernel_device(x)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    elem = x.element_size()
+    comm = x.new_empty(2 * seg_cols)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _entry("selfdma_chunked")(
+        x.data_ptr(), out.data_ptr(), comm.data_ptr(), cap.sm_count,
+        seg_cols * elem, W // seg_cols, elem, x.device.index or 0, stream)
+    if err:
+        raise KernelError(f"selfdma_chunked launch failed: CUDA error {err}")
+    SELFDMA.launched(torch.zeros(0, dtype=torch.int32, device=x.device))
+    return out
 
 
 def ring_allreduce_rd(flat: torch.Tensor, op) -> torch.Tensor:
@@ -914,11 +965,12 @@ def allreduce_block_rd(b: torch.Tensor, op, *, rd=ring_allreduce_rd
 
 def allreduce_block_chunked(b: torch.Tensor, op,
                             seg_bytes: Optional[int] = None, *,
-                            chunked=ring_allreduce_chunked) -> torch.Tensor:
-    """Rank-major allreduce over the segmented streaming ring."""
+                            chunked=ring_allreduce_chunked,
+                            selfdma=selfdma_chunked) -> torch.Tensor:
+    """Rank-major allreduce over the segmented streaming ring; on one
+    rank, the identity through the same segments (``selfdma``), into a
+    new tensor."""
     n = b.shape[0]
-    if n == 1:
-        return b
     if seg_bytes is None:
         seg_bytes = _segment_var.value
     flat = b.reshape(n, -1)
@@ -927,7 +979,10 @@ def allreduce_block_chunked(b: torch.Tensor, op,
     pad = n * rows * LANES - size
     if pad:
         flat = F.pad(flat, (0, pad))
-    out = chunked(flat.reshape(n, n, rows * LANES), op, seg_rows * LANES)
+    if n == 1:
+        out = selfdma(flat, seg_rows * LANES)
+    else:
+        out = chunked(flat.reshape(n, n, rows * LANES), op, seg_rows * LANES)
     return _unsplit(out, pad, tuple(b.shape[1:]))
 
 

@@ -4,15 +4,25 @@ gather and scatter).
 
 Precedence, as in the JAX package: forced var
 (``coll_tuned_<op>_algorithm``) > correctness guard (non-commutative or
-joint op → the rank-ordered path) > static priors
-(``sched/priors.prior_*``). The rules file, the schedule-compiler
-winner cache, the host tier, the circuit breaker and the
-health/fault/trace seams are not ported yet: a fault in the chosen tier
+joint op → the rank-ordered path) > the schedule compiler's winner
+cache (``sched.lookup``) > static priors (``sched/priors.prior_*``).
+The rules file, the host tier, the circuit breaker and the
+health/fault seams are not ported yet: a fault in the chosen tier
 propagates to the caller instead of degrading to the next tier. The
-alltoall, gather and scatter priors' names are all ported; those of the
-other operations other than ``native`` (``recursive_doubling``,
-``binomial``, ``ring``, ...) are spmd algorithms the port does not have
-yet: they raise ``ArgumentError``.
+allreduce, alltoall, gather and scatter priors' names are all ported,
+and reduce's ``binomial``; the spmd algorithms the bcast, allgather
+and reduce_scatter priors pick with ``coll_tuned_prefer_native=false``
+(``binomial``, ``binary``, ``ring``, ...) are not yet: they raise
+``ArgumentError``, as the quantized-wire names (``quant_ring``,
+``quant_pallas``, ``sched_quant``) do until that tier is ported.
+
+Tiers registered lazily, as in the JAX package: the hand kernels
+(``pallas_*``), the schedule compiler (``sched_*``, whose
+``sched_pallas_*`` names run the table kernel) and the quantized wire.
+A forced name runs its algorithm even on a one-rank communicator (every
+algorithm is the identity there; the JAX package returns the input
+before dispatch), which is how the one-rank chunked kernel is reached
+through the API.
 
 As in the JAX package there is no hand-kernel alltoall name: the
 alltoall kernel is reached through ``PallasColl``. A gather algorithm
@@ -23,7 +33,7 @@ returns root's rows and a scatter algorithm takes root's buffer (see
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -46,6 +56,9 @@ _small = _V("allreduce_small_cutoff", type=int, default=10_000,
 _ring_limit = _V("allreduce_ring_limit", type=int, default=1 << 20,
                  description="Allreduce: max bytes/rank for plain ring "
                              "before switching to segmented ring")
+_seg_bytes = _V("segment_bytes", type=int, default=1 << 20,
+                description="Segment size for segmented algorithms "
+                            "(reference: 1MiB)")
 _prefer_native = _V("prefer_native", type=bool, default=True,
                     description="Use the native collective when the op "
                                 "supports it")
@@ -79,11 +92,19 @@ _alltoall_large = _V("alltoall_large_msg", type=int, default=32 << 10,
 
 ALLREDUCE_ALGOS: dict[str, Callable] = {
     "native": spmd.allreduce_native,
+    "recursive_doubling": spmd.allreduce_recursive_doubling,
+    "ring": spmd.allreduce_ring,
+    "ring_segmented": spmd.allreduce_ring_segmented,
+    "rabenseifner": spmd.allreduce_reduce_scatter_allgather,
+    "nonoverlapping": spmd.allreduce_nonoverlapping,
     "gather_reduce": spmd._allreduce_gather_reduce,
 }
 ALLGATHER_ALGOS: dict[str, Callable] = {"native": spmd.allgather_native}
 BCAST_ALGOS: dict[str, Callable] = {"native": spmd.bcast_native}
-REDUCE_ALGOS: dict[str, Callable] = {"native": spmd.reduce_native}
+REDUCE_ALGOS: dict[str, Callable] = {
+    "native": spmd.reduce_native,
+    "binomial": spmd.reduce_binomial,
+}
 REDUCE_SCATTER_ALGOS: dict[str, Callable] = {
     "native": spmd.reduce_scatter_native,
 }
@@ -130,14 +151,120 @@ def _pallas_algos() -> None:
     SCATTER_ALGOS["pallas_linear"] = pr.scatter_block
 
 
+def _quant_algos() -> None:
+    """Register the quantized-wire names. The tier is not ported yet
+    (ROADMAP Queue 1 item 7): the names exist, as in the JAX package,
+    and raise ``ArgumentError`` when called."""
+    if "quant_ring" in ALLREDUCE_ALGOS:
+        return
+
+    def unported(name: str) -> Callable:
+        def run(b, op):
+            raise ArgumentError(
+                f"allreduce algorithm {name!r} is the quantized wire, "
+                f"which the port does not have yet (ROADMAP Queue 1 "
+                f"item 7)")
+        return run
+
+    ALLREDUCE_ALGOS["quant_ring"] = unported("quant_ring")
+    ALLREDUCE_ALGOS["quant_pallas"] = unported("quant_pallas")
+
+
+def _sched_algos() -> None:
+    """Register the schedule-compiler tier (coll/sched): IR programs
+    lowered to callables over the rank-major tensor, the
+    ``sched_pallas_*`` ones to the table kernel."""
+    if "sched_ring" in ALLREDUCE_ALGOS:
+        return
+    from . import sched
+
+    ALLREDUCE_ALGOS["sched_ring"] = sched.allreduce_sched_ring
+    ALLREDUCE_ALGOS["sched_rd"] = sched.allreduce_sched_rd
+    ALLREDUCE_ALGOS["sched_ring_seg"] = sched.allreduce_sched_ring_seg
+    ALLREDUCE_ALGOS["sched_hier"] = sched.allreduce_sched_hier
+    ALLREDUCE_ALGOS["sched_quant"] = sched.allreduce_sched_quant
+    ALLREDUCE_ALGOS["sched_pallas_ring"] = sched.allreduce_sched_pallas_ring
+    ALLREDUCE_ALGOS["sched_pallas_ring_seg"] = \
+        sched.allreduce_sched_pallas_ring_seg
+    REDUCE_SCATTER_ALGOS["sched_pallas_rs"] = sched.reduce_scatter_sched_pallas
+
+
 def is_pallas_algo(name: str) -> bool:
-    return name.startswith("pallas")
+    """The hand-kernel names, the table kernel's (``sched_pallas_*``)
+    and the quantized wire's kernel."""
+    return name.startswith(("pallas", "sched_pallas")) \
+        or name == "quant_pallas"
+
+
+def is_quant_algo(name: str) -> bool:
+    return name.startswith("quant")
+
+
+def is_sched_algo(name: str) -> bool:
+    """Schedule-compiler tier names (lowered IR programs)."""
+    return name.startswith("sched_")
+
+
+def _ensure_lazy(algo: str) -> None:
+    """Trigger whichever lazy tier registration ``algo`` needs."""
+    if is_pallas_algo(algo):
+        _pallas_algos()
+    if is_quant_algo(algo):
+        _quant_algos()
+    if is_sched_algo(algo):
+        _sched_algos()
+
+
+_SPACES = {
+    "allreduce": ALLREDUCE_ALGOS,
+    "alltoall": ALLTOALL_ALGOS,
+    "allgather": ALLGATHER_ALGOS,
+    "bcast": BCAST_ALGOS,
+    "reduce": REDUCE_ALGOS,
+    "reduce_scatter": REDUCE_SCATTER_ALGOS,
+    "gather": GATHER_ALGOS,
+    "scatter": SCATTER_ALGOS,
+}
+
+#: Algorithm names that exist but are registered lazily. The JAX
+#: package's scan and exscan spaces are not ported yet.
+_LAZY_ALGOS: dict[str, frozenset] = {
+    "allreduce": frozenset({
+        "pallas_ring", "pallas_bidir", "pallas_rd", "pallas_ring_chunked",
+        "pallas_rsag", "quant_ring", "quant_pallas",
+        "sched_ring", "sched_rd", "sched_ring_seg", "sched_hier",
+        "sched_quant", "sched_pallas_ring", "sched_pallas_ring_seg",
+    }),
+    "bcast": frozenset({"pallas_binomial"}),
+    "allgather": frozenset({"pallas_ring"}),
+    "reduce": frozenset({"pallas_tree"}),
+    "reduce_scatter": frozenset({"pallas_ring", "sched_pallas_rs"}),
+    "gather": frozenset({"pallas_linear"}),
+    "scatter": frozenset({"pallas_linear"}),
+}
+
+
+def _resolve_algo(opname: str, algo: str) -> Optional[Callable]:
+    """The callable behind an algorithm name (None if unknown),
+    triggering lazy tier registrations on demand — how the autotuner
+    resolves candidates by name."""
+    _ensure_lazy(algo)
+    space = _SPACES.get(opname)
+    return None if space is None else space.get(algo)
+
+
+def _algo_space(opname: str) -> set:
+    """Every selectable algorithm name for ``opname``, including the
+    lazily registered tiers (without importing them)."""
+    space = _SPACES.get(opname)
+    if space is None:
+        return set()
+    return set(space) | set(_LAZY_ALGOS.get(opname, ()))
 
 
 def _algo(algos: dict, opname: str, name: str) -> Callable:
     """The algorithm registered under ``name`` for ``opname``."""
-    if is_pallas_algo(name):
-        _pallas_algos()
+    _ensure_lazy(name)
     fn = algos.get(name)
     if fn is None:
         raise ArgumentError(
@@ -157,13 +284,28 @@ def _ordered(op: Op) -> bool:
     return not op.commutative or op.joint
 
 
+def _sched_lookup(opname: str, nbytes: int, nranks: int, dtype=None,
+                  op=None) -> Optional[str]:
+    """Compiled-schedule cache consult (the precedence slot between the
+    correctness guards and the static priors). ``nbytes`` is bytes per
+    rank, the cache's size-bucket convention."""
+    from . import sched
+
+    return sched.lookup(opname, nbytes, nranks, dtype=dtype, op=op)
+
+
 def decide_allreduce(op: Op, nbytes: int, nranks: int, dtype=None) -> str:
-    """Pick the allreduce algorithm; ``nbytes`` is bytes per rank."""
+    """Pick the allreduce algorithm; ``nbytes`` is bytes per rank.
+    Forced var > correctness guard (non-commutative/joint → ordered
+    gather_reduce) > the winner cache > static priors."""
     forced = _force_allreduce.value
     if forced:
         return forced
     if _ordered(op):
         return "gather_reduce"
+    got = _sched_lookup("allreduce", nbytes, nranks, dtype, op)
+    if got:
+        return got
     from .sched import priors
 
     return priors.prior_allreduce(op, nbytes, nranks, dtype)
@@ -173,6 +315,9 @@ def decide_allgather(nbytes: int, nranks: int) -> str:
     forced = _force_allgather.value
     if forced:
         return forced
+    got = _sched_lookup("allgather", nbytes, nranks)
+    if got:
+        return got
     from .sched import priors
 
     return priors.prior_allgather(nbytes, nranks)
@@ -182,6 +327,9 @@ def decide_bcast(nbytes: int, nranks: int) -> str:
     forced = _force_bcast.value
     if forced:
         return forced
+    got = _sched_lookup("bcast", nbytes, nranks)
+    if got:
+        return got
     from .sched import priors
 
     return priors.prior_bcast(nbytes, nranks)
@@ -193,6 +341,9 @@ def decide_reduce(op: Op, nbytes: int, nranks: int) -> str:
         return forced
     if _ordered(op):
         return "native"  # ordered handling lives in the algo fallback
+    got = _sched_lookup("reduce", nbytes, nranks)
+    if got:
+        return got
     from .sched import priors
 
     return priors.prior_reduce(op, nbytes, nranks)
@@ -206,6 +357,9 @@ def decide_reduce_scatter(op: Op, nbytes: int, nranks: int) -> str:
         # ring/halving accumulate out of rank order; the native path's
         # ordered reduction is the only correct one
         return "native"
+    got = _sched_lookup("reduce_scatter", nbytes, nranks)
+    if got:
+        return got
     from .sched import priors
 
     return priors.prior_reduce_scatter(op, nbytes, nranks)
@@ -215,6 +369,9 @@ def decide_alltoall(nbytes_per_dest: int, nranks: int) -> str:
     forced = _force_alltoall.value
     if forced:
         return forced
+    got = _sched_lookup("alltoall", nbytes_per_dest, nranks)
+    if got:
+        return got
     from .sched import priors
 
     return priors.prior_alltoall(nbytes_per_dest, nranks)
@@ -224,6 +381,9 @@ def decide_gather(nbytes: int, nranks: int) -> str:
     forced = _force_gather.value
     if forced:
         return forced
+    got = _sched_lookup("gather", nbytes, nranks)
+    if got:
+        return got
     from .sched import priors
 
     return priors.prior_gather(nbytes, nranks)
@@ -235,6 +395,9 @@ def decide_scatter(nbytes: int, nranks: int) -> str:
     forced = _force_scatter.value
     if forced:
         return forced
+    got = _sched_lookup("scatter", nbytes, nranks)
+    if got:
+        return got
     from .sched import priors
 
     return priors.prior_scatter(nbytes, nranks)
@@ -252,7 +415,7 @@ class TunedColl(XlaColl):
     def allreduce(self, comm, x, op):
         op = op_lookup(op)
         x = _leaf_check(comm, x)
-        if comm.size == 1:
+        if comm.size == 1 and not _force_allreduce.value:
             return x
         is_plain = isinstance(x, torch.Tensor)
         algo = decide_allreduce(op, _nbytes(x), comm.size,
@@ -264,9 +427,14 @@ class TunedColl(XlaColl):
             algo = "gather_reduce"
             fn = ALLREDUCE_ALGOS[algo]
         key = ("allreduce", algo, op.cache_key, _dtype_key(x))
+        if algo == "ring_segmented":
+            seg_elems = max(1, _seg_bytes.value // x.element_size())
+            key = key + (seg_elems,)
+            per_rank = lambda b: fn(b, op, segment_elems=seg_elems)  # noqa: E731
+        else:
+            per_rank = lambda b: fn(b, op)  # noqa: E731
         SPC.record(f"coll_allreduce_algo_{algo}")
-        plan = compile_plan(comm, key, lambda b: fn(b, op))
-        return plan(x)
+        return compile_plan(comm, key, per_rank)(x)
 
     def allgather(self, comm, x):
         x = rank_major_check(comm, x)

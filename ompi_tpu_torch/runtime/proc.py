@@ -18,6 +18,7 @@ class Proc:
     device: torch.device
     process_index: int = 0  # owning controller process
     platform: str = "gpu"  # 'gpu' | 'cpu'
+    slice_index: int = 0  # all ranks of one card form one slice
 
     def __repr__(self) -> str:
         return f"Proc(rank={self.rank}, dev={self.device})"

@@ -1,7 +1,10 @@
-"""The port's eleven CUDA kernels on a card, each against its plain
+"""The port's thirteen CUDA kernels on a card, each against its plain
 version: ring_allreduce, ring_allreduce_rd, ring_allreduce_chunked,
 ring_reduce_scatter, ring_allgather, tree_reduce, tree_bcast,
-ring_allreduce_bidir, ring_alltoall, linear_gather and linear_scatter.
+ring_allreduce_bidir, ring_alltoall, linear_gather, linear_scatter,
+sched_table (the schedule compiler's table-driven kernel, on ring,
+segmented, reduce-scatter, allgather, fused and window programs) and
+selfdma_chunked (the one-rank chunked identity).
 
 Marked ``gpu``: without a CUDA card every test here skips with a reason
 (the kernels have no CPU mode; their plain versions are tested on the
@@ -21,6 +24,8 @@ import pytest
 import torch
 
 from ompi_tpu_torch.coll import pallas_ring as pr
+from ompi_tpu_torch.coll.sched import ir
+from ompi_tpu_torch.coll.sched import pallas_lower as pl
 from ompi_tpu_torch.core.errors import ArgumentError
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -170,3 +175,79 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         pr.ring_alltoall(x[:, :1])
     with pytest.raises(ArgumentError):
         pr.linear_scatter(x[:, 0], root=2)
+
+
+def _programs(n):
+    """The table kernel's programs: ring, ring with an order, segmented
+    ring at 2 and 4 segments, reduce-scatter, allgather, a 3-member
+    fused program and a window."""
+    order = list(range(0, n, 2)) + list(range(1, n, 2))
+    return {
+        "ring": ir.ring(n),
+        "ring+order": ir.ring(n, order=order),
+        "seg2": ir.segmented_ring(n, 2),
+        "seg4": ir.segmented_ring(n, 4),
+        "rs": ir.reduce_scatter(n),
+        "ag": ir.allgather(n),
+        "fuse3": pl.fuse_schedules("fuse3", [ir.ring(n),
+                                             ir.segmented_ring(n, 2),
+                                             ir.ring(n, order=order)]),
+        "window": pl.fuse_window(
+            "window", [ir.allgather(n), ir.allgather(n, order=order)],
+            [ir.reduce_scatter(n), ir.reduce_scatter(n, order=order)]),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_sched_table_matches_plain_on_card(cuda, n, dtype):
+    for name, sched in _programs(n).items():
+        prog = pl.analyze(sched)
+        data = _input(n, prog.nchunks * 333, dtype, cuda).reshape(
+            n, prog.nchunks, 333)  # a ragged chunk
+        for op in OPS if name != "ag" else ("sum",):
+            got = _launched_once(pl.SCHED_TABLE,
+                                 lambda: pl.sched_table(prog, data, op))
+            want = pl.sched_table_plain(prog, data, op)
+            assert torch.equal(_bits(got), _bits(want)), (name, n, op)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [3, 8])
+def test_sched_wrappers_match_plain_on_card(cuda, n):
+    """The registered names' layout (chunks rounded up to 128 elements,
+    reduce-scatter rows padded to 128) around kernel and plain version."""
+    x = _input(n, 5000, "float32", cuda)
+    for sched in (ir.with_lowering(ir.ring(n), "pallas"),
+                  ir.with_lowering(ir.segmented_ring(n, 2), "pallas")):
+        prog = pl.analyze(sched)
+        fn = pl._make_wrapper(prog, sched.name)
+        plain = pl._make_wrapper(prog, sched.name,
+                                 table=pl.sched_table_plain)
+        got = _launched_once(pl.SCHED_TABLE, lambda: fn(x, "sum"))
+        assert torch.equal(got, plain(x, "sum"))
+        assert torch.allclose(got, x.sum(0).expand_as(x), rtol=1e-5,
+                              atol=1e-5)
+    rs = pl.analyze(ir.reduce_scatter(n))
+    y = x[:, :n * 333].reshape(n, n, 333)
+    got = _launched_once(pl.SCHED_TABLE,
+                         lambda: pl._make_wrapper(rs, "rs")(y, "max"))
+    want = pl._make_wrapper(rs, "rs", table=pl.sched_table_plain)(y, "max")
+    assert torch.equal(got, want) and torch.equal(got, y.amax(0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64", "int8"])
+def test_selfdma_chunked_matches_plain_on_card(cuda, dtype):
+    for segs, seg_cols in ((1, 4096), (3, 1024), (8, 384)):
+        x = _input(1, segs * seg_cols, "int32", cuda).to(getattr(torch, dtype))
+        got = _launched_once(pr.SELFDMA, lambda: pr.selfdma_chunked(
+            x, seg_cols))
+        assert got.data_ptr() != x.data_ptr()
+        assert torch.equal(got, pr.selfdma_chunked_plain(x, seg_cols))
+        assert torch.equal(got, x)
+    y = _input(1, 5000, "float32", cuda)  # ragged: the layout pads it
+    got = _launched_once(pr.SELFDMA, lambda: pr.allreduce_block_chunked(
+        y, "sum", 4096))
+    assert torch.equal(got, y) and got.data_ptr() != y.data_ptr()
