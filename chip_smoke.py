@@ -6,13 +6,14 @@ CUDA card, ``nvcc`` and the repository's ``ompi_tpu_torch`` package;
 without a card, or without the package beside it, it exits non-zero
 and prints no result.
 
-The thirteen kernels (``ompi_tpu_torch/csrc/``): ``ring_allreduce``,
+The fourteen kernels (``ompi_tpu_torch/csrc/``): ``ring_allreduce``,
 ``ring_allreduce_rd``, ``ring_allreduce_chunked``,
 ``ring_reduce_scatter``, ``ring_allgather``, ``tree_reduce``,
 ``tree_bcast``, ``ring_allreduce_bidir``, ``ring_alltoall``,
 ``linear_gather``, ``linear_scatter``, ``sched_table`` (the schedule
-compiler's table-driven kernel) and ``selfdma_chunked`` (the one-rank
-chunked identity).
+compiler's table-driven kernel), ``selfdma_chunked`` (the one-rank
+chunked identity) and ``quant_allreduce`` (the ring over the int8
+wire).
 
 Phases (any failure raises and exits non-zero):
 
@@ -33,13 +34,16 @@ Phases (any failure raises and exits non-zero):
    ring at 2 and 4 segments, reduce-scatter, allgather, a 3-member
    ``fuse_schedules``, a ``fuse_window``) at n in {2, 3, 4, 8}, every
    op and dtype, ragged chunks; ``selfdma_chunked`` at 1, 3 and 8
-   segments in six dtypes.
+   segments in six dtypes; ``quant_allreduce`` (SUM) at n in {2, 3, 8}
+   for float32 and bfloat16 inputs at three row counts each, ragged,
+   with stripes that do not divide the rows.
 3. The main path at full width, n = 8, through ``init(nranks=8)`` and
    two vtable routes: a ``world.dup()`` with
    ``coll_pallas_priority=100`` (PallasColl) and one with TunedColl and
    ``coll_tuned_<op>_algorithm`` forcing each kernel's name. It runs as
-   five paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
-   bidirectional ring; alltoall/gather/scatter; the schedule compiler);
+   six paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
+   bidirectional ring; alltoall/gather/scatter; the schedule compiler;
+   the quantized wire);
    the launch counters are zeroed just before each path and read just
    after it, every kernel of the path must have launched there, and
    every result must equal its plain version.
@@ -84,9 +88,24 @@ Phases (any failure raises and exits non-zero):
      the decision must hit the cache (``sched_cache_hits``), take the
      winner and give the winner's bits called by name; last, the cache
      consult's host cost at 4 KiB per rank (``dispatch_cost``), on one
-     JSON line.
+     JSON line;
+   - the quantized wire through TunedColl, float32 SUM, the winner
+     cache off (the priors decide): ``quant_pallas`` forced at 64 KiB
+     (the gate's ``coll_quant_min_bytes``), 1 MiB and 1 GiB per rank,
+     each bitwise its plain version, within ``analytic_error_bound`` of
+     the float64 sum (computed in column chunks) with every rank's rows
+     identical; ``comm.allreduce`` unforced with ``coll_quant_enable``
+     at 1 GiB per rank must take ``quant_ring``, with the SPC ratio
+     equal to ``compression_ratio()`` and ``coll_quant_bytes_on_wire``
+     grown by ``wire_bytes``, and that route's p50 over five calls
+     beside the p50 of the route the same call takes with
+     ``coll_quant_enable`` off; MAX through the same communicator bitwise
+     ``native``; a rules file with ``"allow_quant": false`` brings
+     ``native`` back, bitwise; ``sched_quant`` forced at 1 MiB within
+     the bound and bitwise ``allreduce_quant_ring``.
    Each case frees its input, output and plain result before the next;
-   ``max_memory_allocated`` is printed.
+   ``max_memory_allocated`` is printed for each path and for the whole
+   main path.
 4. A ``kernels`` JSON line, one row per kernel at its main-path size:
    launches on the main path, max |kernel - plain|, p50 time of the
    kernel's wrapper over 20 launches (CUDA events, after warm-up), the
@@ -95,7 +114,14 @@ Phases (any failure raises and exits non-zero):
    PyTorch call computing the same function as a library yardstick the
    port never calls. The kernels of the rooted, half-ring and
    data-movement collectives also carry their p50 at 4 KiB per rank
-   (``small_ms``), and so do the two new ones. ``sched_table``'s row is
+   (``small_ms``), and so do the two of the schedule compiler.
+   ``quant_allreduce``'s row is 1 GiB per rank with its p50 at 64 KiB
+   per rank in ``small_ms``; no single PyTorch call computes the int8
+   wire's result, so its ``library_ms`` is null and the exact sum
+   ``x.sum(0, keepdim=True).expand_as(x).contiguous()`` is timed beside
+   it as ``exact_sum_ms``, for context, with the two TunedColl route
+   p50s of the quant path (``quant_ring_ms``, ``exact_route_ms``).
+   ``sched_table``'s row is
    the segmented-ring program at 1 GiB per rank; its ``also`` list
    holds the ring program at 1 MiB (beside ``ring_allreduce``, the same
    protocol hard-coded) and the reduce-scatter program at 1 GiB sent
@@ -160,6 +186,7 @@ SOURCES = {
     "linear_scatter": "ompi_tpu/coll/pallas_ring.py:1122",
     "sched_table": "ompi_tpu/coll/sched/pallas_lower.py:439",
     "selfdma_chunked": "ompi_tpu/coll/pallas_ring.py:405",
+    "quant_allreduce": "ompi_tpu/coll/quant.py:355",
 }
 SCHED_KERNELS = ("sched_table", "selfdma_chunked")
 # The sched path's forced names: allreduce at 1 MiB and 1 GiB per rank,
@@ -169,6 +196,18 @@ SCHED_FORCED = (("sched_pallas_ring", MIB), ("sched_pallas_ring_seg", GIB),
 # Names checked bitwise against the same call on a CPU communicator.
 CPU_NAMES = ("sched_ring", "sched_rd", "sched_hier", "ring")
 TUNE_SIZES = (4 * KIB, MIB, GIB)
+# The quantized wire's forced kernel sizes: the gate's 64 KiB minimum,
+# 1 MiB and 1 GiB per rank.
+QUANT_SIZES = (64 * KIB, MIB, GIB)
+QUANT_SMALL = 64 * KIB
+#: p50s of the unforced routes at 1 GiB per rank, set by the quant path
+#: and written into the quant_allreduce row.
+QUANT_ROUTE: dict = {}
+QUANT_ROUTE_REPS = 5
+PEAK = [0]  # the main path's peak device memory over its paths
+# Rows per ring block of the quant kernel's checks: at n = 2 and n = 3
+# the last count's stripes do not divide it.
+QUANT_ROWS = {2: (128, 384, 2176), 3: (128, 384, 1536), 8: (128, 384, 1152)}
 
 
 def log(msg: str) -> None:
@@ -396,6 +435,57 @@ def sched_kernel_vs_plain(pr, gen) -> None:
             checked += 1
     log(f"[kernel-vs-plain] selfdma_chunked: {checked} cases bitwise equal "
         f"({time.time() - t0:.1f} s)")
+
+
+def quant_kernel_vs_plain(gen) -> None:
+    """quant_allreduce against its plain version through
+    ``allreduce_block_quant`` (SUM; float32 and bfloat16 inputs, ragged
+    sizes padded to whole quanta), bitwise, every flag back at 0."""
+    import torch
+    from ompi_tpu_torch.coll import quant
+    from ompi_tpu_torch.core.counters import KERNELS
+
+    t0 = time.time()
+    checked = 0
+    for n, row_counts in QUANT_ROWS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows in row_counts:
+                x = random_rank_major((n, n * rows * 128 - 333), dtype, gen)
+                got = quant.allreduce_block_quant(x, "sum")
+                torch.cuda.synchronize()
+                check_sems(KERNELS["quant_allreduce"])
+                equal_or_raise(got, quant.allreduce_block_quant(
+                    x, "sum", quant=quant.quant_allreduce_plain),
+                    f"quant_allreduce n={n} {dtype} rows={rows}")
+                checked += 1
+    log(f"[kernel-vs-plain] quant_allreduce: {checked} cases bitwise equal, "
+        f"all semaphores 0 ({time.time() - t0:.1f} s)")
+
+
+def check_quant_bound(out, x, what: str) -> float:
+    """Every rank's row of ``out`` identical, and row 0 within
+    ``analytic_error_bound`` of the float64 sum of ``x``, computed over
+    column chunks (whole 128-element scale blocks, so each chunk's bound
+    is the whole one's); returns max |out - exact|."""
+    import torch
+    from ompi_tpu_torch.coll import quant
+
+    n = x.shape[0]
+    xf, of = x.reshape(n, -1), out.reshape(n, -1)
+    chunk = 1 << 24
+    worst = 0.0
+    for c0 in range(0, xf.shape[1], chunk):
+        xs, os_ = xf[:, c0:c0 + chunk], of[:, c0:c0 + chunk]
+        if not bool((os_ == os_[:1]).all()):
+            raise AssertionError(f"{what}: ranks disagree")
+        err = (os_[0].double() - xs.double().sum(0)).abs()
+        bound = quant.analytic_error_bound(xs).double()
+        if not (bool(torch.isfinite(os_[0]).all())
+                and bool((err <= bound).all())):
+            raise AssertionError(f"{what}: outside the analytic error bound "
+                                 f"(max err {float(err.max())})")
+        worst = max(worst, float(err.max()))
+    return worst
 
 
 def allreduce_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
@@ -868,6 +958,136 @@ def dispatch_cost(tcomm, config, cache, cache_dir, winner, gen) -> None:
     log(f"[main] TunedColl 4 KiB/rank host us: {out}")
 
 
+def quant_path(tcomm, config, counters, gen) -> dict:
+    """The quantized wire through TunedColl with the winner cache off
+    (so the priors' quant gate decides): the forced kernel name at
+    three sizes, the unforced gate, MAX, the rules-file veto and the
+    schedule compiler's ``sched_quant``; kernel -> max error against
+    its plain version."""
+    import torch
+    from ompi_tpu_torch.coll import quant, tuned
+    from ompi_tpu_torch.coll.sched import cache  # noqa: F401 (its cvars)
+    from ompi_tpu_torch.core.counters import SPC
+
+    errs = {"quant_allreduce": 0.0}
+    force = "coll_tuned_allreduce_algorithm"
+    config.VARS.set("coll_sched_cache_enable", False)
+    for nbytes in QUANT_SIZES:
+        x = random_rank_major((N, nbytes // 4), torch.float32, gen)
+        config.VARS.set(force, "quant_pallas")
+        t0 = time.time()
+        out = tcomm.allreduce(x, "sum")
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        config.VARS.set(force, "")
+        check_sems(counters.KERNELS["quant_allreduce"])
+        what = f"TunedColl[quant_pallas] {nbytes} B/rank"
+        exact_err = check_quant_bound(out, x, what)
+        want = quant.allreduce_block_quant(x, "sum",
+                                           quant=quant.quant_allreduce_plain)
+        errs["quant_allreduce"] = max(errs["quant_allreduce"],
+                                      equal_or_raise(out, want, what))
+        log(f"[main] {what} x {N} ranks: {dt * 1e3:.3f} ms host wall (first "
+            f"call), equal to plain, within the error bound (max |err| "
+            f"{exact_err:.6g} against the float64 sum)")
+        del x, out, want
+        torch.cuda.empty_cache()
+
+    # The unforced route: the gate picks quant_ring at 1 GiB per rank.
+    x = random_rank_major((N, GIB // 4), torch.float32, gen)
+    sum_ = tuned.op_lookup("sum")
+    config.VARS.set("coll_quant_enable", True)
+    if tuned.decide_allreduce(sum_, GIB, N, dtype=x.dtype) != "quant_ring":
+        raise AssertionError("coll_quant_enable: the gate did not pick "
+                             "quant_ring")
+    picks = SPC.read("coll_allreduce_algo_quant_ring")
+    wire0 = SPC.read("coll_quant_bytes_on_wire")
+    t0 = time.time()
+    out = tcomm.allreduce(x, "sum")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    if SPC.read("coll_allreduce_algo_quant_ring") != picks + 1:
+        raise AssertionError("unforced allreduce did not run quant_ring")
+    ratio = SPC.read("coll_quant_compression_ratio")
+    if ratio != quant.compression_ratio():
+        raise AssertionError(f"SPC compression ratio {ratio}")
+    wire = SPC.read("coll_quant_bytes_on_wire") - wire0
+    if wire != quant.wire_bytes(GIB, 4):
+        raise AssertionError(f"SPC bytes on wire {wire}")
+    exact_err = check_quant_bound(out, x, "unforced quant_ring")
+    log(f"[main] TunedColl unforced, coll_quant_enable=true, {GIB} B/rank: "
+        f"quant_ring, {dt * 1e3:.3f} ms host wall (first call), "
+        f"{wire} B on the wire, ratio {ratio:.4f}, within the error bound "
+        f"(max |err| {exact_err:.6g})")
+    del out
+    torch.cuda.empty_cache()
+    # The route a user gets, timed against the route the same call takes
+    # with the quantized wire off.
+    QUANT_ROUTE["quant_ring_ms"] = p50_ms(
+        lambda: tcomm.allreduce(x, "sum"), QUANT_ROUTE_REPS)
+    config.VARS.set("coll_quant_enable", False)
+    QUANT_ROUTE["exact_route"] = tuned.decide_allreduce(
+        sum_, GIB, N, dtype=x.dtype)
+    QUANT_ROUTE["exact_route_ms"] = p50_ms(
+        lambda: tcomm.allreduce(x, "sum"), QUANT_ROUTE_REPS)
+    config.VARS.set("coll_quant_enable", True)
+    torch.cuda.empty_cache()
+    picks = SPC.read("coll_allreduce_algo_quant_ring")
+    log(f"[main] TunedColl {GIB} B/rank p50: quant_ring "
+        f"{QUANT_ROUTE['quant_ring_ms']:.4f} ms, with coll_quant_enable "
+        f"off {QUANT_ROUTE['exact_route']} "
+        f"{QUANT_ROUTE['exact_route_ms']:.4f} ms")
+
+    def native(op):
+        config.VARS.set(force, "native")
+        got = tcomm.allreduce(x, op)
+        config.VARS.set(force, "")
+        return got
+
+    # MAX is refused by the gate and stays exact.
+    got = tcomm.allreduce(x, "max")
+    if SPC.read("coll_allreduce_algo_quant_ring") != picks:
+        raise AssertionError("MAX went over the quantized wire")
+    equal_or_raise(got, native("max"), "MAX under coll_quant_enable")
+    del got
+    torch.cuda.empty_cache()
+    log("[main] TunedColl MAX under coll_quant_enable: bitwise native")
+
+    # A rules file's veto brings the exact tier back.
+    rules = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_archive", "quant_veto_rules.json")
+    os.makedirs(os.path.dirname(rules), exist_ok=True)
+    with open(rules, "w") as f:
+        json.dump({"allreduce": [{"allow_quant": False}]}, f)
+    config.VARS.set("coll_tuned_rules_file", rules)
+    algo = tuned.decide_allreduce(sum_, GIB, N, dtype=x.dtype)
+    got = tcomm.allreduce(x, "sum")
+    config.VARS.set("coll_tuned_rules_file", "")
+    if algo != "native" or SPC.read("coll_allreduce_algo_quant_ring") \
+            != picks:
+        raise AssertionError(f"the rules veto gave {algo}")
+    equal_or_raise(got, native("sum"), "SUM under the rules veto")
+    config.VARS.set("coll_quant_enable", False)
+    del x, got
+    torch.cuda.empty_cache()
+    log("[main] TunedColl SUM with a rules file allow_quant=false: native, "
+        "bitwise")
+
+    # The schedule compiler's quantized-wire program.
+    x = random_rank_major((N, MIB // 4), torch.float32, gen)
+    config.VARS.set(force, "sched_quant")
+    out = tcomm.allreduce(x, "sum")
+    config.VARS.set(force, "")
+    exact_err = check_quant_bound(out, x, "sched_quant")
+    equal_or_raise(out, quant.allreduce_quant_ring(x, "sum"),
+                   "sched_quant vs allreduce_quant_ring")
+    log(f"[main] TunedColl[sched_quant] {MIB} B/rank: bitwise "
+        f"allreduce_quant_ring, within the error bound (max |err| "
+        f"{exact_err:.6g})")
+    config.VARS.set("coll_sched_cache_enable", True)
+    return errs
+
+
 def main_path(tt, pr, config) -> tuple[dict, dict]:
     """Both vtable routes at full size, path by path; returns (kernel ->
     max error, kernel -> launches on its path)."""
@@ -899,10 +1119,14 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
             pcomm, tcomm, pr, config, counters, gen)),
         (SCHED_KERNELS, lambda: sched_path(world, tcomm, pr, config,
                                            counters, gen)),
+        (("quant_allreduce",), lambda: quant_path(tcomm, config, counters,
+                                                  gen)),
     )
     errs, launches = {}, {}
     for kernels, drive in paths:
         counters.reset_launches()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         errs.update(drive())
         got = counters.launches()
         for kernel in kernels:
@@ -910,7 +1134,9 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
                 raise AssertionError(f"main path never launched {kernel}")
             launches[kernel] = got[kernel]
         log(f"[main] launches on this path: "
-            f"{ {k: got[k] for k in kernels} }")
+            f"{ {k: got[k] for k in kernels} }, peak device memory "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+        PEAK[0] = max(peak, PEAK[0], torch.cuda.max_memory_allocated())
     if set(launches) != set(SOURCES):
         raise AssertionError(f"paths cover {sorted(launches)}")
     tt.finalize()
@@ -966,8 +1192,22 @@ def timed_case(pr, kernel, nbytes, gen):
     """(kernel call, plain call, library call, bound bytes, dtype, op) at
     ``nbytes`` per rank, on the kernel's own layout."""
     import torch
+    import torch.nn.functional as F
 
     n = N
+    if kernel == "quant_allreduce":
+        from ompi_tpu_torch.coll import quant
+
+        x = random_rank_major((n, nbytes // 4), torch.float32, gen)
+        quantum = n * 128 * 128  # allreduce_block_quant's padding
+        flat = F.pad(x, (0, (-x.shape[1]) % quantum))
+        blocks = flat.reshape(n, n, -1, 128)
+        # library: none computes the int8 wire's result; the exact sum
+        # is timed beside it for context
+        return (lambda: quant.quant_allreduce(blocks),
+                lambda: quant.quant_allreduce_plain(blocks),
+                lambda: x.sum(0, keepdim=True).expand_as(x).contiguous(),
+                2 * n * nbytes, "float32", "sum")
     if kernel == "sched_table":
         # the main row: the segmented program (small sizes: the ring's)
         fn, plain, library, bound = sched_case(
@@ -1051,13 +1291,16 @@ def measure(pr, gen, errs, launches) -> list:
     sizes = dict(MAIN_SIZES, **{k: GIB for k in COLL_CASES},
                  ring_allreduce_bidir=BIDIR_BYTES,
                  **{k: GIB for k in MOVE_CASES},
-                 **{k: GIB for k in SCHED_KERNELS})
+                 **{k: GIB for k in SCHED_KERNELS}, quant_allreduce=GIB)
     for kernel, nbytes in sizes.items():
         fn, plain, library, nbytes_moved, dtype, op = timed_case(
             pr, kernel, nbytes, gen)
         ms = p50_ms(fn, KERNEL_REPS)
         plain_ms = p50_ms(plain, 3 if nbytes >= GIB else 10)
         library_ms = p50_ms(library, KERNEL_REPS)
+        exact_sum_ms = None
+        if kernel == "quant_allreduce":
+            exact_sum_ms, library_ms = library_ms, None
         bound_ms = nbytes_moved / HBM_BYTES_PER_S * 1e3
         row = {
             "name": kernel, "route": "cuda",
@@ -1073,11 +1316,22 @@ def measure(pr, gen, errs, launches) -> list:
         torch.cuda.empty_cache()
         extra = ""
         if kernel in COLL_CASES or kernel in MOVE_CASES \
-                or kernel in SCHED_KERNELS:
-            fn, _, _, _, _, _ = timed_case(pr, kernel, 4 * KIB, gen)
+                or kernel in SCHED_KERNELS or kernel == "quant_allreduce":
+            small = QUANT_SMALL if kernel == "quant_allreduce" else 4 * KIB
+            fn, _, _, small_moved, _, _ = timed_case(pr, kernel, small, gen)
             row["small_ms"] = p50_ms(fn, KERNEL_REPS)
-            extra = f", {row['small_ms']:.4f} ms at 4 KiB/rank"
+            row["small_bytes_per_rank"] = small
+            row["small_bound_ms"] = small_moved / HBM_BYTES_PER_S * 1e3
+            extra = f", {row['small_ms']:.4f} ms at {small} B/rank"
             del fn
+        if exact_sum_ms is not None:
+            row["exact_sum_ms"] = exact_sum_ms
+            row.update(QUANT_ROUTE)
+            extra += (f"; no library call, the exact sum takes "
+                      f"{exact_sum_ms:.4f} ms; TunedColl quant_ring "
+                      f"{QUANT_ROUTE['quant_ring_ms']:.4f} ms, "
+                      f"{QUANT_ROUTE['exact_route']} "
+                      f"{QUANT_ROUTE['exact_route_ms']:.4f} ms")
         if kernel == "sched_table":
             row["program"] = "segmented_ring(8, 2)"
             row["also"] = []
@@ -1097,9 +1351,10 @@ def measure(pr, gen, errs, launches) -> list:
                 del fn, plain, library
                 torch.cuda.empty_cache()
         rows.append(row)
+        lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"[time] {kernel}: {ms:.4f} ms p50 at {nbytes} B/rank (bound "
             f"{bound_ms:.4f} ms, plain {plain_ms:.3f} ms, library "
-            f"{library_ms:.4f} ms){extra}")
+            f"{lib}){extra}")
         torch.cuda.empty_cache()
     return rows
 
@@ -1142,11 +1397,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernel_vs_plain(pr, gen)
     sched_kernel_vs_plain(pr, gen)
+    quant_kernel_vs_plain(gen)
     torch.cuda.reset_peak_memory_stats()
     errs, launches = main_path(tt, pr, config)
     log(f"[main] launches on the main path: {launches}")
-    log(f"[memory] max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated()} bytes")
+    log(f"[memory] max_memory_allocated {PEAK[0]} bytes")
     rows = measure(pr, gen, errs, launches)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

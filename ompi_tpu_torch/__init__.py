@@ -30,7 +30,8 @@ Rules of the port:
   ``(n, ...)`` tensor holding n virtual ranks on one device.
 """
 
+from . import coll
 from .api import finalize, init, world
 from .communicator import Communicator
 
-__all__ = ["init", "finalize", "world", "Communicator"]
+__all__ = ["init", "finalize", "world", "Communicator", "coll"]

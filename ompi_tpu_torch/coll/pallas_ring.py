@@ -609,6 +609,8 @@ _ARGTYPES = {
                     _I, _I, _P],
     # x, out, comm, blocks, seg bytes, n_segs, elem size, dev, stream
     "selfdma_chunked": [_P, _P, _P, _I, _LL, _I, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, rows, dev, stream
+    "quant_allreduce": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
 }
 
 
@@ -650,14 +652,16 @@ def _stripes(n: int, cols: int, sm_count: int) -> int:
 def _launch(name: str, counter: KernelCounter, x: torch.Tensor,
             out_shape: tuple, cols: int, slots: int, nsem: int,
             scalars: tuple, codes: tuple, dirs: int = 1,
-            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+            out: Optional[torch.Tensor] = None,
+            slot_elems=None) -> torch.Tensor:
     """Launch csrc/<name>.cu on x into a new ``out_shape`` tensor (or
     into ``out``, which the kernel updates). Each rank is striped over
     blocks of ``cols`` columns, in ``dirs`` groups of n x stripes blocks
     (two for the bidirectional ring); the comm scratch holds ``slots``
-    stripe-wide slots per stripe (the kernel lays them out) and the
-    flags are (dirs, n, stripes, nsem) int32, zeroed here on every
-    launch. ``codes`` are the op and dtype codes (or the element size)
+    stripe-wide slots per stripe (the kernel lays them out; a slot is
+    ``slot_elems(sw)`` elements for a stripe sw elements wide where
+    that is not sw) and the flags are (dirs, n, stripes, nsem) int32,
+    zeroed here on every launch. ``codes`` are the op and dtype codes (or the element size)
     the C entry takes after ``scalars``."""
     cap = require_kernel_device(x)
     n = x.shape[0]
@@ -666,7 +670,8 @@ def _launch(name: str, counter: KernelCounter, x: torch.Tensor,
     x = x.contiguous()
     if out is None:
         out = x.new_empty(out_shape)
-    comm = x.new_empty(slots * stripes * sw)
+    comm = x.new_empty(slots * stripes
+                       * (sw if slot_elems is None else slot_elems(sw)))
     sems = torch.zeros(dirs * n * stripes * nsem, dtype=torch.int32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream

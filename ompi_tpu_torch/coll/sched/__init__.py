@@ -36,8 +36,8 @@ _SCHED_MEMO: dict = {}
 
 #: Algorithms this package registers into tuned.ALLREDUCE_ALGOS. The
 #: sched_pallas_* names are the same IR programs lowered to the table
-#: kernel — the device_pallas tier. ``sched_quant`` stays a name: it
-#: raises until the quantized wire is ported (ROADMAP Queue 1 item 7).
+#: kernel — the device_pallas tier; ``sched_quant`` is the quantized
+#: wire's program, lowered to ``coll/quant``'s ring.
 ALGOS = ("sched_ring", "sched_rd", "sched_ring_seg", "sched_hier",
          "sched_quant", "sched_pallas_ring", "sched_pallas_ring_seg")
 
@@ -83,6 +83,12 @@ def build_schedule(algo: str, nranks: int, *, segments: int = 2,
     are these."""
     key = (algo, nranks, segments,
            tuple(map(tuple, groups)) if groups else None)
+    if algo == "sched_quant":
+        from .. import quant
+
+        # the wire codec is part of the program; a cvar flip must
+        # rebuild, not hit the memo
+        key = key + (quant._wire_var.value, quant._block_var.value)
     sch = _SCHED_MEMO.get(key)
     if sch is not None:
         return sch
@@ -101,11 +107,11 @@ def build_schedule(algo: str, nranks: int, *, segments: int = 2,
     elif algo == "sched_hier":
         sch = ir.hierarchical(groups or _host_groups(nranks))
     elif algo == "sched_quant":
-        from ...core.errors import ArgumentError
-        from .lower import _QUANT_QUEUE
+        from .. import quant
 
-        raise ArgumentError(f"sched_quant is a quantized-wire schedule: "
-                            f"{_QUANT_QUEUE}")
+        sch = ir.quantized_wire(nranks, quant._wire_var.value,
+                                quant._block_var.value,
+                                order=_topo_order(nranks))
     elif algo == "sched_pallas_ring":
         sch = ir.with_lowering(
             ir.ring(nranks, order=_topo_order(nranks)), "pallas",
@@ -188,15 +194,20 @@ def reduce_scatter_sched_pallas(b, op):
 # ---------------------------------------------------------------------------
 
 def _usable(opname: str, algo: str, dtype, op) -> bool:
-    """Is a cached winner selectable right now? Guards a winner that is
-    not a known algorithm (a version skew) and the quantized wire, which
-    the port does not have (in the JAX package it needs the user's
-    consent, ``coll_quant_enable``, which is off by default)."""
+    """Is a cached winner selectable right now? Guards the cases where
+    the cache was tuned under settings the current call doesn't meet
+    (quant consent/support, unknown algorithm after a version skew).
+    Membership tests only: this runs on every cache hit."""
     if (algo not in ALGOS and algo not in tuned._SPACES.get(opname, ())
             and algo not in tuned._LAZY_ALGOS.get(opname, ())):
         return False
     if tuned.is_quant_algo(algo) or algo == "sched_quant":
-        return False
+        from .. import quant
+
+        if not quant._enable_var.value:
+            return False
+        if not quant.supports(op or "sum", dtype):
+            return False
     return True
 
 

@@ -67,11 +67,11 @@ _iters_var = _V(
 DEFAULT_SIZES = (4, 64, 1 << 10, 16 << 10, 256 << 10, 4 << 20,
                  64 << 20, 1 << 30)
 
-#: Candidate allreduce schedules. The hand-kernel tiers join only on
-#: request (``include_pallas``). The JAX package adds its quantized-wire
-#: candidates when the user opted into the lossy wire
-#: (``coll_quant_enable``, off by default); the port has no quant tier
-#: yet (ROADMAP Queue 1 item 7), so its pool never holds them.
+#: Candidate allreduce schedules. Quant tiers join only when the user
+#: opted into the lossy wire (coll_quant_enable), mirroring the prior's
+#: consent gate; the quantized ring kernel (``quant_pallas``) is never a
+#: candidate, as in the JAX package. The hand-kernel tiers join only on
+#: request (``include_pallas``).
 _EXACT_CANDIDATES = (
     "native", "recursive_doubling", "ring", "ring_segmented",
     "rabenseifner", "sched_ring", "sched_rd", "sched_ring_seg",
@@ -79,6 +79,7 @@ _EXACT_CANDIDATES = (
 )
 _PALLAS_CANDIDATES = ("pallas_ring", "pallas_bidir", "pallas_rd",
                       "sched_pallas_ring", "sched_pallas_ring_seg")
+_QUANT_CANDIDATES = ("quant_ring", "sched_quant")
 
 
 def candidates(opname: str, nranks: int, dtype=None, op=None, *,
@@ -90,10 +91,13 @@ def candidates(opname: str, nranks: int, dtype=None, op=None, *,
     if opname != "allreduce":
         return [], []
     from ...health import ledger as health
+    from .. import quant
 
     pool = list(_EXACT_CANDIDATES)
     if include_pallas:
         pool += list(_PALLAS_CANDIDATES)
+    if quant._enable_var.value and quant.supports(op or "sum", dtype):
+        pool += list(_QUANT_CANDIDATES)
     pof2 = nranks & (nranks - 1) == 0
     if not pof2:
         # rd-family generators need a power-of-two ring; the guarded
@@ -146,6 +150,12 @@ def _steps_and_wire(algo: str, nbytes: int, nranks: int) -> tuple:
         return 2 * (n - 1) + 2, ring_wire * factor
     if algo in ("rabenseifner", "pallas_rsag"):
         return 2 * logn, ring_wire
+    if algo in ("quant_ring", "sched_quant", "quant_pallas"):
+        from .. import quant
+
+        ratio = max(1.0, quant.compression_ratio())
+        # codec cost: one dequant-accumulate-requant pass per hop
+        return 2 * (n - 1), ring_wire / ratio + nbytes * 2.0e-1 * 1e-3
     if algo == "sched_hier":
         return n + 2, float(nbytes) * (logn + 1)
     if algo == "gather_reduce":

@@ -2,9 +2,19 @@
 ``ompi_tpu/coll/sched/priors.py``: allreduce, alltoall, bcast, reduce,
 allgather, reduce_scatter, gather and scatter).
 
+The reference's fixed decision rules (coll_tuned_decision_fixed.c),
+demoted to the cold-start prior that ``coll/tuned`` consults only when
+the forced var, the rules file, the correctness guards and the winner
+cache have not decided. The byte thresholds stay on the coll_tuned
+cvars; this module turns them into picks. For allreduce the
+quantized-wire gate comes first: ``quant_ring`` when the user consents
+(``coll_quant_enable`` or the caller's ``allow_quant``), the payload is
+at least ``coll_quant_min_bytes`` per rank, ``quant.supports`` the op
+and dtype (a floating SUM) and no rules-file band vetoes it.
+
 Every ``nbytes`` parameter is BYTES PER RANK (the block size of the
-rank-major payload). The quantized-wire tier is not ported yet, so its
-gate, which the JAX package checks first, is treated as off.
+rank-major payload), the convention shared with the rules-file bands
+and the winner cache's size buckets.
 """
 
 from __future__ import annotations
@@ -12,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ...ops import Op
+from .. import quant
 
 
 def _t():
@@ -23,11 +34,24 @@ def _t():
 
 
 def prior_allreduce(op: Op, nbytes: int, nranks: int, dtype=None,
-                    allow_quant: Optional[bool] = None) -> str:
+                    allow_quant: Optional[bool] = None,
+                    rules=None) -> str:
     """Reference regime: recursive doubling < 10 KB/rank, ring to
-    1 MiB/rank, segmented ring above — with the native preference ahead
-    of all three."""
+    1 MiB/rank, segmented ring above — with the native preference and
+    the quantized-wire gate ahead of all three."""
     t = _t()
+    # Quantized wire: before native — trading representable values for
+    # wire bytes only pays on the wire-bound (large, floating, SUM)
+    # band, and only when the user (cvar/caller) and rules all agree.
+    if allow_quant is None:
+        allow_quant = quant._enable_var.value
+    if (allow_quant
+            and nbytes >= quant._min_bytes_var.value
+            and quant.supports(op, dtype)
+            and (rules is None
+                 or rules.allows_quant("allreduce", nbytes, nranks,
+                                       dtype))):
+        return "quant_ring"
     if t._prefer_native.value and op.native_reduce is not None:
         return "native"
     if nbytes < t._small.value:

@@ -3,22 +3,25 @@ for allreduce, alltoall, bcast, reduce, allgather, reduce_scatter_block,
 gather and scatter).
 
 Precedence, as in the JAX package: forced var
-(``coll_tuned_<op>_algorithm``) > correctness guard (non-commutative or
-joint op → the rank-ordered path) > the schedule compiler's winner
-cache (``sched.lookup``) > static priors (``sched/priors.prior_*``).
-The rules file, the host tier, the circuit breaker and the
+(``coll_tuned_<op>_algorithm``) > the user's rules file
+(``coll_tuned_rules_file``, :class:`Rules`) > correctness guard
+(non-commutative or joint op → the rank-ordered path) > the schedule
+compiler's winner cache (``sched.lookup``) > static priors
+(``sched/priors.prior_*``, where the quantized-wire gate comes first
+for allreduce). The host tier, the circuit breaker and the
 health/fault seams are not ported yet: a fault in the chosen tier
 propagates to the caller instead of degrading to the next tier. The
 allreduce, alltoall, gather and scatter priors' names are all ported,
 and reduce's ``binomial``; the spmd algorithms the bcast, allgather
 and reduce_scatter priors pick with ``coll_tuned_prefer_native=false``
 (``binomial``, ``binary``, ``ring``, ...) are not yet: they raise
-``ArgumentError``, as the quantized-wire names (``quant_ring``,
-``quant_pallas``, ``sched_quant``) do until that tier is ported.
+``ArgumentError``.
 
 Tiers registered lazily, as in the JAX package: the hand kernels
 (``pallas_*``), the schedule compiler (``sched_*``, whose
-``sched_pallas_*`` names run the table kernel) and the quantized wire.
+``sched_pallas_*`` names run the table kernel) and the quantized wire
+(``quant_ring``, the XLA ring over the wire; ``quant_pallas``, the
+quantized ring kernel).
 A forced name runs its algorithm even on a one-rank communicator (every
 algorithm is the identity there; the JAX package returns the input
 before dispatch), which is how the one-rank chunked kernel is reached
@@ -32,6 +35,7 @@ returns root's rows and a scatter algorithm takes root's buffer (see
 
 from __future__ import annotations
 
+import json
 from functools import partial
 from typing import Callable, Optional
 
@@ -40,10 +44,13 @@ import torch
 from ..core import config
 from ..core.counters import SPC
 from ..core.errors import ArgumentError
+from ..core.logging import get_logger
 from ..ops import Op, lookup as op_lookup
 from . import spmd
 from .framework import COLL, compile_plan, rank_major_check
 from .xla import XlaColl, _dtype_key, _leaf_check, scatter_buffer
+
+logger = get_logger("coll.tuned")
 
 _V = partial(config.register, "coll", "tuned")
 _large = _V("bcast_large_cutoff", type=int, default=1 << 20,
@@ -62,6 +69,9 @@ _seg_bytes = _V("segment_bytes", type=int, default=1 << 20,
 _prefer_native = _V("prefer_native", type=bool, default=True,
                     description="Use the native collective when the op "
                                 "supports it")
+_rules_file = _V("rules_file", type=str, default="",
+                 description="JSON dynamic-rules file (reference: "
+                             "coll_tuned_dynamic_file.c)")
 _force_allreduce = _V("allreduce_algorithm", type=str, default="",
                       description="Force an allreduce algorithm by name")
 _force_allgather = _V("allgather_algorithm", type=str, default="",
@@ -152,22 +162,15 @@ def _pallas_algos() -> None:
 
 
 def _quant_algos() -> None:
-    """Register the quantized-wire names. The tier is not ported yet
-    (ROADMAP Queue 1 item 7): the names exist, as in the JAX package,
-    and raise ``ArgumentError`` when called."""
+    """Register the quantized-wire names (lazily, like _pallas_algos:
+    the names are selectable from rules files and forced vars before
+    the module is imported)."""
     if "quant_ring" in ALLREDUCE_ALGOS:
         return
+    from . import quant
 
-    def unported(name: str) -> Callable:
-        def run(b, op):
-            raise ArgumentError(
-                f"allreduce algorithm {name!r} is the quantized wire, "
-                f"which the port does not have yet (ROADMAP Queue 1 "
-                f"item 7)")
-        return run
-
-    ALLREDUCE_ALGOS["quant_ring"] = unported("quant_ring")
-    ALLREDUCE_ALGOS["quant_pallas"] = unported("quant_pallas")
+    ALLREDUCE_ALGOS["quant_ring"] = quant.allreduce_quant_ring
+    ALLREDUCE_ALGOS["quant_pallas"] = quant.allreduce_block_quant
 
 
 def _sched_algos() -> None:
@@ -272,6 +275,135 @@ def _algo(algos: dict, opname: str, name: str) -> Callable:
     return fn
 
 
+#: Operation names a rules file may key (the JAX package's; scan and
+#: exscan have no algorithm space in the port yet, so a rule there
+#: names an unknown algorithm).
+_KNOWN_OPNAMES = frozenset({
+    "allreduce", "alltoall", "allgather", "bcast", "reduce", "scan",
+    "exscan", "reduce_scatter", "gather", "scatter",
+})
+
+class Rules:
+    """Dynamic decision rules loaded from a JSON file:
+    {"allreduce": [{"max_bytes": N, "min_ranks": M, "algorithm": "ring"},
+     ...], ...} — first matching entry wins.
+
+    Band keys: min_bytes/max_bytes/min_ranks/max_ranks, plus the
+    precision dimension: ``"dtype": "float32"`` restricts a rule to one
+    payload dtype, and ``"allow_quant": false`` vetoes the automatic
+    quantized-wire tier inside the rule's band (a rule carrying only
+    the veto needs no "algorithm").
+
+    Unknown opname keys and unknown algorithm names are not silent: each
+    is logged once, counted on the ``coll_tuned_rules_unknown`` pvar,
+    and the rule is skipped, so a bogus rules file can never select a
+    nonexistent algorithm."""
+
+    def __init__(self, path: str) -> None:
+        with open(path, "r", encoding="utf-8") as f:
+            self._rules = json.load(f)
+        self._warned: set = set()
+        for opname in self._rules:
+            if opname not in _KNOWN_OPNAMES:
+                self._warn_once(
+                    ("opname", opname),
+                    "rules file names unknown operation %r "
+                    "(known: %s)", opname, sorted(_KNOWN_OPNAMES),
+                )
+
+    def _warn_once(self, key: tuple, msg: str, *args) -> None:
+        if key in self._warned:
+            return
+        self._warned.add(key)
+        SPC.record("coll_tuned_rules_unknown")
+        logger.warning(msg, *args)
+
+    @staticmethod
+    def _matches(rule: dict, nbytes: int, nranks: int, dtype) -> bool:
+        if nbytes > rule.get("max_bytes", float("inf")):
+            return False
+        if nbytes < rule.get("min_bytes", 0):
+            return False
+        if nranks < rule.get("min_ranks", 0):
+            return False
+        if nranks > rule.get("max_ranks", float("inf")):
+            return False
+        want = rule.get("dtype")
+        if want is not None and (dtype is None or _dtype_name(dtype) != want):
+            return False
+        return True
+
+    def decide(self, opname: str, nbytes: int, nranks: int,
+               dtype=None) -> Optional[str]:
+        known = _algo_space(opname)
+        for rule in self._rules.get(opname, ()):
+            if not self._matches(rule, nbytes, nranks, dtype):
+                continue
+            algo = rule.get("algorithm")
+            if algo is None:
+                continue  # veto-only rule (allow_quant band)
+            if algo not in known:
+                self._warn_once(
+                    ("algo", opname, algo),
+                    "rules file names unknown %s algorithm %r "
+                    "(known: %s); rule skipped", opname, algo,
+                    sorted(known),
+                )
+                continue
+            return algo
+        return None
+
+    def allows_quant(self, opname: str, nbytes: int, nranks: int,
+                     dtype=None) -> bool:
+        """False when the first matching rule carries
+        ``"allow_quant": false`` — the user-rules veto on the
+        automatic quantized-wire tier."""
+        for rule in self._rules.get(opname, ()):
+            if not self._matches(rule, nbytes, nranks, dtype):
+                continue
+            if "allow_quant" in rule:
+                return bool(rule["allow_quant"])
+        return True
+
+
+def _dtype_name(dtype) -> str:
+    """A dtype as the JAX package prints it ("float32"), from a torch
+    dtype or a name."""
+    return str(dtype).removeprefix("torch.")
+
+
+_rules_cache: dict[str, Rules] = {}
+
+
+def _rules() -> Optional[Rules]:
+    """The rules file ``coll_tuned_rules_file`` names, loaded once per
+    path (None when unset). A file that cannot be read or parsed is
+    logged and gives no rules."""
+    path = _rules_file.value
+    if not path:
+        return None
+    r = _rules_cache.get(path)
+    if r is None:
+        try:
+            r = Rules(path)
+        except (OSError, ValueError, KeyError) as exc:
+            logger.warning("cannot load rules file %s: %s", path, exc)
+            r = Rules.__new__(Rules)
+            r._rules = {}
+            r._warned = set()
+        _rules_cache[path] = r
+    return r
+
+
+def _ruled(opname: str, nbytes: int, nranks: int,
+           dtype=None) -> Optional[str]:
+    """The rules file's pick for the call, or None."""
+    rules = _rules()
+    if rules is None:
+        return None
+    return rules.decide(opname, nbytes, nranks, dtype)
+
+
 def _nbytes(x) -> int:
     """Bytes per rank of a rank-major tensor (or tuple of tensors)."""
     leaves = list(x) if isinstance(x, (tuple, list)) else [x]
@@ -294,27 +426,44 @@ def _sched_lookup(opname: str, nbytes: int, nranks: int, dtype=None,
     return sched.lookup(opname, nbytes, nranks, dtype=dtype, op=op)
 
 
-def decide_allreduce(op: Op, nbytes: int, nranks: int, dtype=None) -> str:
+def decide_allreduce(op: Op, nbytes: int, nranks: int, dtype=None,
+                     allow_quant: Optional[bool] = None) -> str:
     """Pick the allreduce algorithm; ``nbytes`` is bytes per rank.
-    Forced var > correctness guard (non-commutative/joint → ordered
-    gather_reduce) > the winner cache > static priors."""
+    ``dtype`` is the payload element type (None = unknown → quant
+    refused). ``allow_quant`` overrides the coll_quant_enable cvar (True
+    forces consideration, False vetoes, a cached quant winner too); user
+    rules can veto per band via ``"allow_quant": false``.
+
+    Precedence: forced var > rules file > correctness guard
+    (non-commutative/joint → ordered gather_reduce) > the winner cache >
+    static priors."""
     forced = _force_allreduce.value
     if forced:
         return forced
+    rules = _rules()
+    if rules is not None:
+        got = rules.decide("allreduce", nbytes, nranks, dtype)
+        if got:
+            return got
     if _ordered(op):
         return "gather_reduce"
     got = _sched_lookup("allreduce", nbytes, nranks, dtype, op)
-    if got:
-        return got
+    if got and not (allow_quant is False and (is_quant_algo(got)
+                                              or got == "sched_quant")):
+        return got  # the caller's explicit lossy-wire veto wins
     from .sched import priors
 
-    return priors.prior_allreduce(op, nbytes, nranks, dtype)
+    return priors.prior_allreduce(op, nbytes, nranks, dtype, allow_quant,
+                                  rules)
 
 
 def decide_allgather(nbytes: int, nranks: int) -> str:
     forced = _force_allgather.value
     if forced:
         return forced
+    got = _ruled("allgather", nbytes, nranks)
+    if got:
+        return got
     got = _sched_lookup("allgather", nbytes, nranks)
     if got:
         return got
@@ -327,6 +476,9 @@ def decide_bcast(nbytes: int, nranks: int) -> str:
     forced = _force_bcast.value
     if forced:
         return forced
+    got = _ruled("bcast", nbytes, nranks)
+    if got:
+        return got
     got = _sched_lookup("bcast", nbytes, nranks)
     if got:
         return got
@@ -339,6 +491,9 @@ def decide_reduce(op: Op, nbytes: int, nranks: int) -> str:
     forced = _force_reduce.value
     if forced:
         return forced
+    got = _ruled("reduce", nbytes, nranks)
+    if got:
+        return got
     if _ordered(op):
         return "native"  # ordered handling lives in the algo fallback
     got = _sched_lookup("reduce", nbytes, nranks)
@@ -353,6 +508,9 @@ def decide_reduce_scatter(op: Op, nbytes: int, nranks: int) -> str:
     forced = _force_reduce_scatter.value
     if forced:
         return forced
+    got = _ruled("reduce_scatter", nbytes, nranks)
+    if got:
+        return got
     if _ordered(op):
         # ring/halving accumulate out of rank order; the native path's
         # ordered reduction is the only correct one
@@ -369,6 +527,9 @@ def decide_alltoall(nbytes_per_dest: int, nranks: int) -> str:
     forced = _force_alltoall.value
     if forced:
         return forced
+    got = _ruled("alltoall", nbytes_per_dest, nranks)
+    if got:
+        return got
     got = _sched_lookup("alltoall", nbytes_per_dest, nranks)
     if got:
         return got
@@ -381,6 +542,9 @@ def decide_gather(nbytes: int, nranks: int) -> str:
     forced = _force_gather.value
     if forced:
         return forced
+    got = _ruled("gather", nbytes, nranks)
+    if got:
+        return got
     got = _sched_lookup("gather", nbytes, nranks)
     if got:
         return got
@@ -395,6 +559,9 @@ def decide_scatter(nbytes: int, nranks: int) -> str:
     forced = _force_scatter.value
     if forced:
         return forced
+    got = _ruled("scatter", nbytes, nranks)
+    if got:
+        return got
     got = _sched_lookup("scatter", nbytes, nranks)
     if got:
         return got
@@ -427,6 +594,13 @@ class TunedColl(XlaColl):
             algo = "gather_reduce"
             fn = ALLREDUCE_ALGOS[algo]
         key = ("allreduce", algo, op.cache_key, _dtype_key(x))
+        if is_quant_algo(algo) or algo == "sched_quant":
+            from . import quant
+
+            wire = quant._wire_var.value
+            blk = quant._block_var.value
+            key = key + (wire, blk)
+            quant.record_wire_stats(_nbytes(x), x.element_size(), wire, blk)
         if algo == "ring_segmented":
             seg_elems = max(1, _seg_bytes.value // x.element_size())
             key = key + (seg_elems,)

@@ -1,7 +1,9 @@
 """Software performance counters and per-kernel launch counters.
 
-``SPC`` is the minimal port of ``ompi_tpu/core/counters.py``'s event
-counters (``SPC.record(name)`` at each dispatch). ``KernelCounter`` is
+``SPC`` is the minimal port of ``ompi_tpu/core/counters.py``'s scalar
+counters: event counters (``SPC.record(name)`` at each dispatch) and
+gauges that are set (``SPC.set(name, v)``, e.g. the quantized wire's
+last compression ratio). ``KernelCounter`` is
 the port's own: every hand-written CUDA kernel's wrapper owns one and
 adds one to it at the single place where it launches the kernel, so a
 run can show that the main path went through the kernel.
@@ -14,17 +16,22 @@ from typing import Optional
 
 
 class SpcRegistry:
-    """Process-local named event counters (MPI_T pvar counters)."""
+    """Process-local named counters (MPI_T pvars): event counts and
+    gauges that are set."""
 
     def __init__(self) -> None:
-        self._counts: dict[str, int] = {}
+        self._counts: dict[str, float] = {}
         self._lock = threading.Lock()
 
-    def record(self, name: str, amount: int = 1) -> None:
+    def record(self, name: str, amount: float = 1) -> None:
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + amount
 
-    def read(self, name: str) -> int:
+    def set(self, name: str, value: float) -> None:
+        with self._lock:
+            self._counts[name] = value
+
+    def read(self, name: str) -> float:
         with self._lock:
             return self._counts.get(name, 0)
 

@@ -1,10 +1,11 @@
-"""The port's thirteen CUDA kernels on a card, each against its plain
+"""The port's fourteen CUDA kernels on a card, each against its plain
 version: ring_allreduce, ring_allreduce_rd, ring_allreduce_chunked,
 ring_reduce_scatter, ring_allgather, tree_reduce, tree_bcast,
 ring_allreduce_bidir, ring_alltoall, linear_gather, linear_scatter,
 sched_table (the schedule compiler's table-driven kernel, on ring,
-segmented, reduce-scatter, allgather, fused and window programs) and
-selfdma_chunked (the one-rank chunked identity).
+segmented, reduce-scatter, allgather, fused and window programs),
+selfdma_chunked (the one-rank chunked identity) and quant_allreduce
+(the ring over the int8 wire).
 
 Marked ``gpu``: without a CUDA card every test here skips with a reason
 (the kernels have no CPU mode; their plain versions are tested on the
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from ompi_tpu_torch.coll import pallas_ring as pr
+from ompi_tpu_torch.coll import quant
 from ompi_tpu_torch.coll.sched import ir
 from ompi_tpu_torch.coll.sched import pallas_lower as pl
 from ompi_tpu_torch.core.errors import ArgumentError
@@ -251,3 +253,42 @@ def test_selfdma_chunked_matches_plain_on_card(cuda, dtype):
     got = _launched_once(pr.SELFDMA, lambda: pr.allreduce_block_chunked(
         y, "sum", 4096))
     assert torch.equal(got, y) and got.data_ptr() != y.data_ptr()
+
+
+# Rows per ring block for the quant kernel: rows % 128 == 0, and at n = 2
+# and n = 3 a count whose stripes (min(132 // n, rows / 32) of them) do
+# not divide it.
+QUANT_ROWS = {2: (128, 384, 2176), 3: (128, 1536), 8: (128, 1152)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_quant_allreduce_matches_plain_on_card(cuda, n, dtype):
+    for rows in QUANT_ROWS[n]:
+        x = _input(n, n * rows * 128 - 333, dtype, cuda)  # ragged: padded
+        got = _launched_once(quant.QUANT,
+                             lambda: quant.allreduce_block_quant(x, "sum"))
+        want = quant.allreduce_block_quant(
+            x, "sum", quant=quant.quant_allreduce_plain)
+        assert got.dtype == x.dtype and got.shape == x.shape
+        assert torch.equal(_bits(got), _bits(want)), (n, dtype, rows)
+        assert torch.equal(got, got[:1].expand_as(got))  # ranks agree
+
+
+@pytest.mark.gpu
+def test_quant_allreduce_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(ArgumentError):
+        quant.quant_allreduce(torch.ones(2, 2, 64, 128, device=cuda))
+    with pytest.raises(ArgumentError):
+        quant.quant_allreduce(torch.ones(2, 2, 128, 128, device=cuda,
+                                         dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        quant.allreduce_block_quant(torch.ones(2, 100, device=cuda), "max")
+    # a contiguous view one float past an aligned start: the wrapper
+    # copies it, since the kernel loads rows as 16-byte vectors
+    buf = _input(1, 2 * 2 * 128 * 128 + 1, "float32", cuda).reshape(-1)
+    blocks = buf[1:].view(2, 2, 128, 128)
+    assert blocks.data_ptr() % 16
+    got = _launched_once(quant.QUANT, lambda: quant.quant_allreduce(blocks))
+    assert torch.equal(got, quant.quant_allreduce_plain(blocks))

@@ -523,9 +523,10 @@ def test_registered_names_match_jax_package():
         else:
             assert got == want, (opname, got ^ want)
     for algo in ("quant_ring", "quant_pallas", "sched_quant"):
+        # the quantized wire takes SUM alone, as in the JAX package
         fn = ttuned._resolve_algo("allreduce", algo)
-        with pytest.raises(ArgumentError, match="Queue 1 item 7"):
-            fn(torch.ones(8, 4), lookup("sum"))
+        with pytest.raises(ValueError, match="SUM only"):
+            fn(torch.ones(8, 4), lookup("max"))
     for algo in ("pallas_ring", "sched_pallas_ring", "quant_pallas"):
         assert ttuned.is_pallas_algo(algo) == jtuned.is_pallas_algo(algo)
 
@@ -659,9 +660,14 @@ def test_lowering_memo_validator_and_quant_refusal(worlds):
         dataclasses.replace(st, kind="copy")
         if st.round == 3 and st.kind == "reduce" else st for st in s.steps))
     assert not tlower.validate_schedule(comm, bad, "sum", "float32")
-    with pytest.raises(ArgumentError, match="Queue 1 item 7"):
-        tlower.validate_schedule(comm, tir.quantized_wire(8), "sum",
+    # the quantized wire: int8 by the error bound, bf16 bit-exact; MAX
+    # is refused, never quantized
+    for wire in ("int8", "bf16"):
+        assert tlower.validate_schedule(
+            comm, tir.quantized_wire(8, wire), "sum", "float32"), wire
+    with pytest.raises(ValueError, match="SUM only"):
+        tlower.validate_schedule(comm, tir.quantized_wire(8), "max",
                                  "float32")
-    with pytest.raises(ArgumentError, match="Queue 1 item 7"):
-        tsched.build_schedule("sched_quant", 8)
+    assert tsched.build_schedule("sched_quant", 8).meta["primitive"] == \
+        "quant_ring"
     assert jsched.ALGOS == tsched.ALGOS
