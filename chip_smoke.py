@@ -6,14 +6,15 @@ CUDA card, ``nvcc`` and the repository's ``ompi_tpu_torch`` package;
 without a card, or without the package beside it, it exits non-zero
 and prints no result.
 
-The fourteen kernels (``ompi_tpu_torch/csrc/``): ``ring_allreduce``,
+The sixteen kernels (``ompi_tpu_torch/csrc/``): ``ring_allreduce``,
 ``ring_allreduce_rd``, ``ring_allreduce_chunked``,
 ``ring_reduce_scatter``, ``ring_allgather``, ``tree_reduce``,
 ``tree_bcast``, ``ring_allreduce_bidir``, ``ring_alltoall``,
 ``linear_gather``, ``linear_scatter``, ``sched_table`` (the schedule
 compiler's table-driven kernel), ``selfdma_chunked`` (the one-rank
-chunked identity) and ``quant_allreduce`` (the ring over the int8
-wire).
+chunked identity), ``quant_allreduce`` (the ring over the int8 wire),
+``ppermute_shift`` (one ring hop) and ``ring_attention`` (exact
+attention over the ring).
 
 Phases (any failure raises and exits non-zero):
 
@@ -36,14 +37,27 @@ Phases (any failure raises and exits non-zero):
    op and dtype, ragged chunks; ``selfdma_chunked`` at 1, 3 and 8
    segments in six dtypes; ``quant_allreduce`` (SUM) at n in {2, 3, 8}
    for float32 and bfloat16 inputs at three row counts each, ragged,
-   with stripes that do not divide the rows.
+   with stripes that do not divide the rows. Then, with
+   ``torch.backends.cuda.matmul.allow_tf32 = False`` (printed):
+   ``ppermute_shift`` bitwise against its plain version and
+   ``torch.roll`` (n = 8, 13 float32 values, the slice's 8 MiB KV block
+   in bfloat16 and 4 KiB per rank, shifts 1, -1, 3); ``ring_attention``
+   at Llama-2-7B's attention widths (32 heads of 128, multi-head; the
+   4096-token context over n = 8 ranks, T = 512) in bfloat16 and float32,
+   causal and not, against its plain version (the protocol simulator)
+   and against softmax attention over the gathered sequence, to one
+   bfloat16 ulp and the JAX package's 2e-4 for float32 (two bfloat16
+   controls, p or the output accumulator rounded, must fail the bfloat16
+   limit); and 20 launches at n = 8 and at
+   n = 3 per dtype, bitwise equal to each other. Every flag back at 0
+   after every launch.
 3. The main path at full width, n = 8, through ``init(nranks=8)`` and
    two vtable routes: a ``world.dup()`` with
    ``coll_pallas_priority=100`` (PallasColl) and one with TunedColl and
    ``coll_tuned_<op>_algorithm`` forcing each kernel's name. It runs as
-   six paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
+   eight paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
    bidirectional ring; alltoall/gather/scatter; the schedule compiler;
-   the quantized wire);
+   the quantized wire; ring attention; the ring hop);
    the launch counters are zeroed just before each path and read just
    after it, every kernel of the path must have launched there, and
    every result must equal its plain version.
@@ -103,6 +117,16 @@ Phases (any failure raises and exits non-zero):
      ``native``; a rules file with ``"allow_quant": false`` brings
      ``native`` back, bitwise; ``sched_quant`` forced at 1 MiB within
      the bound and bitwise ``allreduce_quant_ring``.
+   - ring attention through ``parallel.sp.ring_attention(q, k, v,
+     impl="pallas")`` for the four cases above: one kernel launch per
+     call, the bits of the checked kernel; ``impl="xla"`` launches
+     nothing and agrees to tolerance; head dim 132, which the gate
+     refuses, takes the xla path with no launch and agrees with full
+     attention;
+   - the ring hop through ``ppermute_shift`` at 8 MiB and 4 KiB per
+     rank, every shift, bitwise ``torch.roll``. The JAX package calls it
+     only from tests and ring attention fuses its own hop, so this phase
+     is its only main-path use.
    Each case frees its input, output and plain result before the next;
    ``max_memory_allocated`` is printed for each path and for the whole
    main path.
@@ -126,6 +150,13 @@ Phases (any failure raises and exits non-zero):
    holds the ring program at 1 MiB (beside ``ring_allreduce``, the same
    protocol hard-coded) and the reduce-scatter program at 1 GiB sent
    per rank; ``selfdma_chunked``'s is n = 1 at 1 GiB.
+   ``ppermute_shift``'s row is 8 MiB per rank (4 KiB in ``small_ms``),
+   its library call ``torch.roll(x, 1, 0).contiguous()``.
+   ``ring_attention``'s row is bfloat16 causal, its other three cases in
+   ``also``; its bound is the larger of the bytes (q, k, v, out once)
+   over 3.35 TB/s and the operations (4 S^2 H Dh, causal 4 H Dh
+   S(S+1)/2) over 989 TFLOP/s bfloat16 or 67 TFLOP/s float32, and its
+   library call ``scaled_dot_product_attention`` on (1, H, S, Dh).
 5. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -187,6 +218,8 @@ SOURCES = {
     "sched_table": "ompi_tpu/coll/sched/pallas_lower.py:439",
     "selfdma_chunked": "ompi_tpu/coll/pallas_ring.py:405",
     "quant_allreduce": "ompi_tpu/coll/quant.py:355",
+    "ppermute_shift": "ompi_tpu/coll/pallas_ring.py:1209",
+    "ring_attention": "ompi_tpu/coll/pallas_attn.py:39",
 }
 SCHED_KERNELS = ("sched_table", "selfdma_chunked")
 # The sched path's forced names: allreduce at 1 MiB and 1 GiB per rank,
@@ -208,6 +241,32 @@ PEAK = [0]  # the main path's peak device memory over its paths
 # Rows per ring block of the quant kernel's checks: at n = 2 and n = 3
 # the last count's stripes do not divide it.
 QUANT_ROWS = {2: (128, 384, 2176), 3: (128, 384, 1536), 8: (128, 384, 1152)}
+# Ring attention at Llama-2-7B's attention widths (meta-llama/Llama-2-7b-hf
+# config.json: num_attention_heads 32, hidden_size 4096, so head dim 128;
+# max_position_embeddings 4096), multi-head, the 4096-token context
+# sharded over N virtual ranks: T = 512 tokens per rank.
+ATTN_HEADS, ATTN_HEAD_DIM, ATTN_SEQ = 32, 128, 4096
+ATTN_T = ATTN_SEQ // N
+# (atol, rtol): |got - want| <= atol + rtol |want| everywhere. float32:
+# the JAX package's 2e-4. bfloat16: one bfloat16 ulp (2**-7 of |want|,
+# and 1e-5 for outputs near 0). The kernel, its plain version and full
+# attention all compute in float32 and round once to bfloat16, so they
+# differ by at most one ulp; the JAX package's 3e-2, set at S <= 64, is
+# as wide as a typical output at S = 4096 (about 0.026). Two controls
+# that round p, or the output accumulator, to bfloat16 must fail it.
+ATTN_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-5, 2.0 ** -7)}
+ATTN_CASES = tuple((dtype, causal) for dtype in ("bfloat16", "float32")
+                   for causal in (True, False))
+ATTN_MAIN = ("bfloat16", True)  # the kernels-line row; the rest in "also"
+RACE_LAUNCHES = 20
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM data sheet
+# The ring hop's sizes per rank: the slice's KV block (2T x H x Dh
+# bfloat16, 8 MiB), then 4 KiB.
+HOP_BYTES = 2 * ATTN_T * ATTN_HEADS * ATTN_HEAD_DIM * 2
+HOP_SHIFTS = (1, -1, 3)
+#: kernel outputs of the attention checks, (dtype, causal) -> tensor; the
+#: main path's calls must give the same bits.
+ATTN_OUT: dict = {}
 
 
 def log(msg: str) -> None:
@@ -1088,6 +1147,284 @@ def quant_path(tcomm, config, counters, gen) -> dict:
     return errs
 
 
+def attn_inputs(dtype: str, gen, n: int = 0, dh: int = 0):
+    """Rank-major (n, T, H, dh) q, k, v from the seeded generator (n = N
+    and dh = ATTN_HEAD_DIM unless given)."""
+    import torch
+
+    n, dh = n or N, dh or ATTN_HEAD_DIM
+    return tuple(random_rank_major((n, ATTN_T, ATTN_HEADS, dh),
+                                   getattr(torch, dtype), gen)
+                 for _ in range(3))
+
+
+def full_attention(q, k, v, causal: bool):
+    """Softmax attention over the gathered (S, H, Dh) sequence in f32,
+    one head at a time: the independent check of the ring."""
+    import torch
+
+    n, t, h, dh = q.shape
+    s = n * t
+    qs, ks, vs = (x.reshape(s, h, dh).float() for x in (q, k, v))
+    out = torch.empty((s, h, dh), dtype=torch.float32, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    for head in range(h):
+        scores = (qs[:, head] @ ks[:, head].T) / dh ** 0.5
+        if causal:
+            scores = scores.masked_fill(~mask, float("-inf"))
+        out[:, head] = torch.softmax(scores, -1) @ vs[:, head]
+    return out.reshape(n, t, h, dh)
+
+
+def excess(got, want, limit):
+    """(max |got - want|, max |got - want| / limit): ``limit`` is an
+    (atol, rtol) pair, numpy's assert_allclose rule (atol + rtol |want|),
+    or a tensor of limits."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if isinstance(limit, tuple):
+        limit = limit[0] + limit[1] * want.abs()
+    return float(err.max()), float((err / limit).max())
+
+
+def within(got, want, limit, what: str):
+    """``excess(got, want, limit)``, after checking |got - want| <= limit
+    everywhere."""
+    err, ratio = excess(got, want, limit)
+    if ratio > 1.0:
+        raise AssertionError(f"{what}: max err {err}, {ratio:.3g} times "
+                             f"its limit")
+    return err, ratio
+
+
+def rounded_control(q, k, v, causal: bool, where: str):
+    """The JAX kernel's fold, rank block by rank block over the gathered
+    sequence, in float32 with one rounding to bfloat16 added: of p
+    before p @ V (``where="p"``), or of the output accumulator after
+    every block (``where="o"``). The bfloat16 tolerance must refuse
+    both, or it could not tell a kernel that did either."""
+    import torch
+
+    n, t, h, dh = q.shape
+    s = n * t
+    qs, ks, vs = (x.reshape(s, h, dh).float() for x in (q, k, v))
+    pos = torch.arange(s, device=q.device)
+    out = torch.empty((s, h, dh), dtype=torch.float32, device=q.device)
+    for head in range(h):
+        m = torch.full((s,), -1e30, device=q.device)
+        l = torch.zeros(s, device=q.device)
+        o = torch.zeros((s, dh), device=q.device)
+        for src in range(n):
+            keys = slice(src * t, (src + 1) * t)
+            scores = (qs[:, head] @ ks[keys, head].T) / dh ** 0.5
+            if causal:
+                scores = scores.masked_fill(
+                    pos[:, None] < pos[None, keys], -1e30)
+            m_new = torch.maximum(m, scores.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(scores - m_new[:, None])
+            l = l * corr + p.sum(-1)
+            if where == "p":
+                p = p.bfloat16().float()
+            o = o * corr[:, None] + p @ vs[keys, head]
+            if where == "o":
+                o = o.bfloat16().float()
+            m = m_new
+        out[:, head] = o / l.clamp(min=1e-30)[:, None]
+    return out.reshape(n, t, h, dh).to(q.dtype)
+
+
+def xla_reference(q, k, v, causal: bool):
+    """The xla path's arithmetic without its ring: the JAX package's xla
+    path takes its scores from an einsum in the input dtype, so they
+    round to bfloat16 and no float32 oracle comes within an ulp of it
+    at S = 4096. Here every ring step's scores come from that einsum on
+    the same shapes (rank-major q against k rolled by the step), times
+    1/sqrt(Dh) computed in the input dtype; then one float32 softmax
+    over all n T keys on global positions and p @ V in float32, with no
+    online fold and no ring shift. The xla path must come within one
+    output ulp of it (ATTN_TOL)."""
+    import torch
+
+    n, t, h, dh = q.shape
+    scale = 1.0 / torch.sqrt(torch.tensor(dh, dtype=q.dtype,
+                                          device=q.device))
+    steps = [torch.einsum("nqhd,nkhd->nhqk", q, torch.roll(k, step, 0))
+             .float() * scale for step in range(n)]
+    pos = torch.arange(n * t, device=q.device)
+    vs = v.reshape(n * t, h, dh).float().transpose(0, 1)  # (H, S, Dh)
+    out = torch.empty((n, h, t, dh), dtype=torch.float32, device=q.device)
+    for me in range(n):
+        # step s of rank me holds the keys of rank (me - s) mod n
+        scores = torch.cat([steps[(me - src) % n][me] for src in range(n)],
+                           -1)  # (H, T, S)
+        if causal:
+            mask = pos[me * t:(me + 1) * t, None] >= pos[None, :]
+            scores = torch.where(mask, scores, -1e30)
+        out[me] = torch.softmax(scores, -1) @ vs
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attn_kernel_vs_plain(gen) -> dict:
+    """ppermute_shift bitwise against its plain version; ring_attention
+    against its plain version and against full attention, to the JAX
+    package's tolerances, and bitwise equal to itself over 20 launches
+    at n = 8 and n = 3. Every flag back at 0 after every launch.
+    Returns kernel -> max error against the plain version."""
+    import torch
+    from ompi_tpu_torch.coll import pallas_attn as pa
+    from ompi_tpu_torch.coll import pallas_ring as pr
+    from ompi_tpu_torch.core.counters import KERNELS
+
+    t0 = time.time()
+    checked = 0
+    hop_err = 0.0
+    for shape, dtype in (((N, 13), torch.float32),
+                         ((N, 2 * ATTN_T, ATTN_HEADS, ATTN_HEAD_DIM),
+                          torch.bfloat16),
+                         ((N, 4 * KIB // 2), torch.bfloat16)):
+        x = random_rank_major(shape, dtype, gen)
+        for shift in HOP_SHIFTS:
+            got = pr.ppermute_shift(x, shift)
+            torch.cuda.synchronize()
+            check_sems(KERNELS["ppermute_shift"])
+            hop_err = max(hop_err, equal_or_raise(
+                got, pr.ppermute_shift_plain(x, shift),
+                f"ppermute_shift {tuple(shape)} {dtype} shift={shift}"))
+            equal_or_raise(got, torch.roll(x, shift, 0), "ppermute vs roll")
+            checked += 1
+    log(f"[kernel-vs-plain] ppermute_shift: {checked} cases bitwise equal, "
+        f"all semaphores 0 ({time.time() - t0:.1f} s)")
+
+    attn_err = 0.0
+    for dtype, causal in ATTN_CASES:
+        t0 = time.time()
+        q, k, v = attn_inputs(dtype, gen)
+        got = pa.ring_attention_block(q, k, v, causal)
+        torch.cuda.synchronize()
+        check_sems(KERNELS["ring_attention"])
+        what = f"ring_attention {dtype} causal={causal}"
+        if got.shape != q.shape or got.dtype != q.dtype \
+                or not bool(got.isfinite().all()):
+            raise AssertionError(f"{what}: bad output")
+        tol = ATTN_TOL[dtype]
+        plain = pa.ring_attention_block_plain(q, k, v, causal)
+        err, err_ratio = within(got, plain, tol, f"{what} vs plain")
+        full, full_ratio = within(got, full_attention(q, k, v, causal), tol,
+                                  f"{what} vs full attention")
+        attn_err = max(attn_err, err)
+        ATTN_OUT[dtype, causal] = (q, k, v, got)
+        controls = ""
+        if dtype == "bfloat16":
+            ratios = []
+            for where in ("p", "o"):
+                control = rounded_control(q, k, v, causal, where)
+                ratios.append(excess(control, plain, tol)[1])
+                if ratios[-1] <= 1.0:
+                    raise AssertionError(
+                        f"{what}: a fold that rounds {where} to bfloat16 "
+                        f"passes the tolerance against plain")
+            controls = (f"; controls rounding p / o to bfloat16 "
+                        f"{ratios[0]:.3g} / {ratios[1]:.3g} times the "
+                        f"limit, refused")
+        log(f"[kernel-vs-plain] {what}: max err {err:.3g} vs plain, "
+            f"{full:.3g} vs full attention ({err_ratio:.3g}, "
+            f"{full_ratio:.3g} of the limit at atol, rtol {tol})"
+            f"{controls} ({time.time() - t0:.1f} s)")
+
+    for n in (N, 3):
+        for dtype in ("bfloat16", "float32"):
+            t0 = time.time()
+            q, k, v = attn_inputs(dtype, gen, n=n)
+            first = None
+            for _ in range(RACE_LAUNCHES):
+                got = pa.ring_attention_block(q, k, v, True)
+                torch.cuda.synchronize()
+                check_sems(KERNELS["ring_attention"])
+                if first is None:
+                    first = got
+                elif not torch.equal(bits(got), bits(first)):
+                    raise AssertionError(f"ring_attention n={n} {dtype}: "
+                                         f"launches disagree")
+            log(f"[races] ring_attention n={n} {dtype} causal: "
+                f"{RACE_LAUNCHES} launches bitwise equal, all semaphores 0 "
+                f"({time.time() - t0:.1f} s)")
+    return {"ppermute_shift": hop_err, "ring_attention": attn_err}
+
+
+def attention_path(config, counters, gen) -> dict:
+    """``sp.ring_attention(q, k, v, impl="pallas")`` on the card at the
+    slice's widths, bfloat16 and float32, causal and not: one kernel
+    launch per call, the bits of the kernel's checks; ``impl="xla"`` and
+    a shape the gate refuses launch nothing and agree to tolerance."""
+    import torch
+    from ompi_tpu_torch.coll import pallas_attn as pa
+    from ompi_tpu_torch.parallel import sp
+
+    errs = {}
+    for dtype, causal in ATTN_CASES:
+        q, k, v, want = ATTN_OUT[dtype, causal]
+        before = pa.ATTN.launches
+        got = sp.ring_attention(q, k, v, causal=causal, impl="pallas")
+        torch.cuda.synchronize()
+        if pa.ATTN.launches != before + 1:
+            raise AssertionError("sp.ring_attention(impl='pallas') did not "
+                                 "launch the kernel exactly once")
+        check_sems(pa.ATTN)
+        equal_or_raise(got, want, f"sp.ring_attention {dtype} {causal}")
+        xla = sp.ring_attention(q, k, v, causal=causal, impl="xla")
+        torch.cuda.synchronize()
+        if pa.ATTN.launches != before + 1:
+            raise AssertionError("impl='xla' launched the kernel")
+        xla_err, xla_ratio = within(xla, xla_reference(q, k, v, causal),
+                                    ATTN_TOL[dtype],
+                                    f"xla path {dtype} {causal}")
+        errs[dtype, causal] = float((got.float() - xla.float()).abs().max())
+        log(f"[main] sp.ring_attention {dtype} causal={causal}: one launch, "
+            f"bitwise the checked kernel; the xla path {xla_err:.3g} from "
+            f"its arithmetic without the ring ({xla_ratio:.3g} of the "
+            f"limit at atol, rtol {ATTN_TOL[dtype]}), max |pallas - xla| "
+            f"{errs[dtype, causal]:.3g}")
+    # Dh % 8 != 0: the gate refuses it and the xla path answers
+    q, k, v = attn_inputs("bfloat16", gen, dh=ATTN_HEAD_DIM + 4)
+    if pa.supported(q):
+        raise AssertionError("the gate took Dh = 132")
+    before = pa.ATTN.launches
+    got = sp.ring_attention(q, k, v, impl="pallas")
+    torch.cuda.synchronize()
+    if pa.ATTN.launches != before:
+        raise AssertionError("a refused shape reached the kernel")
+    equal_or_raise(got, sp.ring_attention(q, k, v, impl="xla"),
+                   "refused shape vs xla")
+    within(got, xla_reference(q, k, v, True), ATTN_TOL["bfloat16"],
+           "refused shape vs the xla path's arithmetic")
+    log("[main] Dh = 132 (refused by the gate): the xla path, no launch, "
+        "within an ulp of its arithmetic without the ring")
+    return {}
+
+
+def hop_path(counters, gen) -> dict:
+    """The ring hop through its entry point ``ppermute_shift`` on the
+    slice's KV block (8 MiB per rank, bfloat16) and at 4 KiB per rank,
+    every shift, bitwise ``torch.roll``. The JAX package calls its
+    ppermute_shift only from tests; ring attention's hop is fused into
+    its own kernel, so this phase is the kernel's only main-path use."""
+    import torch
+    from ompi_tpu_torch.coll import pallas_ring as pr
+
+    for nbytes in (HOP_BYTES, 4 * KIB):
+        x = random_rank_major((N, nbytes // 2), torch.bfloat16, gen)
+        for shift in HOP_SHIFTS:
+            got = pr.ppermute_shift(x, shift)
+            torch.cuda.synchronize()
+            check_sems(pr.PPERMUTE)
+            equal_or_raise(got, torch.roll(x, shift, 0),
+                           f"ppermute_shift {nbytes} B shift={shift}")
+    log(f"[main] ppermute_shift at {HOP_BYTES} and {4 * KIB} B per rank, "
+        f"shifts {HOP_SHIFTS}: bitwise torch.roll")
+    return {}
+
+
 def main_path(tt, pr, config) -> tuple[dict, dict]:
     """Both vtable routes at full size, path by path; returns (kernel ->
     max error, kernel -> launches on its path)."""
@@ -1121,6 +1458,9 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
                                            counters, gen)),
         (("quant_allreduce",), lambda: quant_path(tcomm, config, counters,
                                                   gen)),
+        (("ring_attention",), lambda: attention_path(config, counters,
+                                                     gen)),
+        (("ppermute_shift",), lambda: hop_path(counters, gen)),
     )
     errs, launches = {}, {}
     for kernels, drive in paths:
@@ -1359,6 +1699,99 @@ def measure(pr, gen, errs, launches) -> list:
     return rows
 
 
+def attn_flops(causal: bool) -> float:
+    """Operations of attention over the whole sequence: 4 S^2 H Dh, or
+    the causal half with its diagonal, 4 H Dh S(S+1)/2."""
+    s, h, dh = ATTN_SEQ, ATTN_HEADS, ATTN_HEAD_DIM
+    return 4 * h * dh * (s * (s + 1) / 2 if causal else s * s)
+
+
+def attn_rows(gen, errs, launches) -> list:
+    """The kernels-line rows of ppermute_shift (8 MiB per rank, shift 1;
+    4 KiB in small_ms) and ring_attention (bfloat16 causal; the other
+    three cases in "also"), with their bounds, plain and library times."""
+    import torch
+    import torch.nn.functional as F
+    from ompi_tpu_torch.coll import pallas_attn as pa
+    from ompi_tpu_torch.coll import pallas_ring as pr
+
+    x = random_rank_major((N, HOP_BYTES // 2), torch.bfloat16, gen)
+    small = random_rank_major((N, 2 * KIB), torch.bfloat16, gen)
+    hop = {
+        "name": "ppermute_shift", "route": "cuda",
+        "source": "ompi_tpu_torch/csrc/ppermute_shift.cu",
+        "replaces": SOURCES["ppermute_shift"],
+        "launches": launches["ppermute_shift"],
+        "launches_note": "its own phase: no other main-path call reaches it",
+        "max_abs_err": errs["ppermute_shift"],
+        "ms": p50_ms(lambda: pr.ppermute_shift(x, 1), KERNEL_REPS),
+        "plain_ms": p50_ms(lambda: pr.ppermute_shift_plain(x, 1), 10),
+        "bound_ms": 2 * N * HOP_BYTES / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": p50_ms(lambda: torch.roll(x, 1, 0).contiguous(),
+                             KERNEL_REPS),
+        "bytes_per_rank": HOP_BYTES, "nranks": N, "dtype": "bfloat16",
+        "op": None,
+        "small_ms": p50_ms(lambda: pr.ppermute_shift(small, 1), KERNEL_REPS),
+        "small_bytes_per_rank": 4 * KIB,
+        "small_bound_ms": 2 * N * 4 * KIB / HBM_BYTES_PER_S * 1e3,
+    }
+    log(f"[time] ppermute_shift: {hop['ms']:.4f} ms p50 at {HOP_BYTES} "
+        f"B/rank (bound {hop['bound_ms']:.5f} ms, plain "
+        f"{hop['plain_ms']:.3f} ms, library {hop['library_ms']:.4f} ms), "
+        f"{hop['small_ms']:.4f} ms at {4 * KIB} B/rank")
+    del x, small
+
+    cases = []
+    for dtype, causal in ATTN_CASES:
+        q, k, v, _ = ATTN_OUT[dtype, causal]
+        itemsize = q.element_size()
+        nbytes = 4 * q.numel() * itemsize  # q, k, v read, out written
+        flops = attn_flops(causal)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = flops / PEAK_FLOPS[dtype] * 1e3
+        # the library yardstick on (1, H, S, Dh); the port never calls it
+        lq, lk, lv = (t.reshape(ATTN_SEQ, ATTN_HEADS, ATTN_HEAD_DIM)
+                      .transpose(0, 1).unsqueeze(0).contiguous()
+                      for t in (q, k, v))
+        case = {
+            "dtype": dtype, "causal": causal,
+            "ms": p50_ms(lambda: pa.ring_attention_block(q, k, v, causal),
+                         KERNEL_REPS),
+            "plain_ms": p50_ms(
+                lambda: pa.ring_attention_block_plain(q, k, v, causal), 3),
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "library_ms": p50_ms(lambda: F.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=causal), KERNEL_REPS),
+            "flops": flops, "bytes": nbytes,
+        }
+        case["tflops_per_s"] = flops / case["ms"] / 1e9
+        cases.append(case)
+        log(f"[time] ring_attention {dtype} causal={causal}: "
+            f"{case['ms']:.4f} ms p50 (bound {case['bound_ms']:.4f} ms by "
+            f"{case['bound_by']}, plain {case['plain_ms']:.3f} ms, SDPA "
+            f"{case['library_ms']:.4f} ms, {case['tflops_per_s']:.2f} "
+            f"TFLOP/s)")
+        del lq, lk, lv
+    main = cases[ATTN_CASES.index(ATTN_MAIN)]
+    attn = {
+        "name": "ring_attention", "route": "cuda",
+        "source": "ompi_tpu_torch/csrc/ring_attention.cu",
+        "replaces": SOURCES["ring_attention"],
+        "launches": launches["ring_attention"],
+        "max_abs_err": errs["ring_attention"],
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        "nranks": N, "tokens_per_rank": ATTN_T, "heads": ATTN_HEADS,
+        "head_dim": ATTN_HEAD_DIM, "dtype": ATTN_MAIN[0],
+        "causal": ATTN_MAIN[1], "op": None,
+        "tflops_per_s": main["tflops_per_s"],
+        "also": [c for c in cases if c is not main],
+    }
+    return [hop, attn]
+
+
 def main() -> int:
     import torch
 
@@ -1398,11 +1831,17 @@ def main() -> int:
     kernel_vs_plain(pr, gen)
     sched_kernel_vs_plain(pr, gen)
     quant_kernel_vs_plain(gen)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"[attn] torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32} (the plain version's f32 "
+        f"products in full f32)")
+    attn_errs = attn_kernel_vs_plain(gen)
     torch.cuda.reset_peak_memory_stats()
     errs, launches = main_path(tt, pr, config)
+    errs.update(attn_errs)
     log(f"[main] launches on the main path: {launches}")
     log(f"[memory] max_memory_allocated {PEAK[0]} bytes")
-    rows = measure(pr, gen, errs, launches)
+    rows = measure(pr, gen, errs, launches) + attn_rows(gen, errs, launches)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,10 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
   (``_scatter_kernel``): every sender stores into root's rows after
   root's ready credit, one flag per sender; root stores into every
   receiver's row, no handshake. Both move bytes, any dtype.
+- ``ppermute_shift`` (the inner kernel of ``ppermute_shift``): one ring
+  hop, every rank's block stored into rank me+shift's row, one flag per
+  receiver; it moves bytes, any dtype. Ring attention's KV hop is
+  fused into its own kernel (``pallas_attn``).
 
 Ranks on one card: a rank-major ``(n, ...)`` tensor holds n virtual
 ranks. A Pallas remote DMA becomes stores into the peer rank's comm slot
@@ -53,8 +57,9 @@ the port's does not.
 
 Plain versions: ``simulate_ring``/``simulate_rd``/``simulate_tree_*``/
 ``simulate_ring_bidir``/``simulate_alltoall``/``simulate_gather``/
-``simulate_scatter`` run the same slot and flag schedule rank by rank on
-tensors (what ``pallas_lower.simulate`` is to the JAX package). The
+``simulate_scatter``/``simulate_ppermute`` run the same slot and flag
+schedule rank by rank on tensors (what ``pallas_lower.simulate`` is to
+the JAX package). The
 data-movement simulators also record, as a fault, every wait that
 returns before the row it certifies has landed. A wrapper uses its
 plain version only for a tensor on the CPU; for a CUDA tensor it
@@ -128,6 +133,7 @@ ALLTOALL = KernelCounter("ring_alltoall")
 GATHER = KernelCounter("linear_gather")
 SCATTER = KernelCounter("linear_scatter")
 SELFDMA = KernelCounter("selfdma_chunked")
+PPERMUTE = KernelCounter("ppermute_shift")
 
 _OP_CODES = {"sum": 0, "prod": 1, "max": 2, "min": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -431,6 +437,29 @@ def simulate_scatter(buf: torch.Tensor, root: int = 0, *,
     return out, _residue(sems)
 
 
+def simulate_ppermute(x: torch.Tensor, shift: int = 1, *,
+                      rng: Optional[random.Random] = None):
+    """Run one ring hop on (n, L): rank me stores its row into row
+    (me + shift) mod n of out and signals that rank's flag, then waits
+    for its own flag, which certifies that its row has landed. Returns
+    (out, residue) as ``simulate_alltoall`` does."""
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    sems: dict = collections.defaultdict(int)
+    landed: set = set()
+
+    def rank(me):
+        dst = (me + shift) % n
+        out[dst] = x[me]
+        landed.add((dst, dst))
+        sems[dst, "recv"] += 1
+        yield (me, "recv"), 1
+        _early(sems, landed, me, me)
+
+    _drive([rank(r) for r in range(n)], sems, rng)
+    return out, _residue(sems)
+
+
 def simulate_rd(flat: torch.Tensor, op: Op, *,
                 rng: Optional[random.Random] = None):
     """Run the recursive-doubling schedule on ``flat`` (n, L), n a power
@@ -573,6 +602,16 @@ def linear_scatter_plain(buf: torch.Tensor, root: int) -> torch.Tensor:
     return _checked(simulate_scatter(buf, root))
 
 
+def _flat_shift(x: torch.Tensor, shift: int) -> tuple[torch.Tensor, int]:
+    n = x.shape[0]
+    return x.reshape(n, -1), shift % n
+
+
+def ppermute_shift_plain(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    flat, shift = _flat_shift(x, shift)
+    return _checked(simulate_ppermute(flat, shift)).reshape(x.shape)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
@@ -611,6 +650,8 @@ _ARGTYPES = {
     "selfdma_chunked": [_P, _P, _P, _I, _LL, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, rows, dev, stream
     "quant_allreduce": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
+    # x, out, comm, sems, n, stripes, L, shift, elem size, dev, stream
+    "ppermute_shift": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
 }
 
 
@@ -866,6 +907,22 @@ def linear_scatter(buf: torch.Tensor, root: int = 0) -> torch.Tensor:
         return linear_scatter_plain(buf, root)
     return _launch("linear_scatter", SCATTER, buf, buf.shape, L, 0, 1,
                    (L, root), (buf.element_size(),))
+
+
+def ppermute_shift(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """One ring hop: rank-major (n, ...) -> (n, ...) where rank
+    (r + shift) mod n holds rank r's block, any dtype. At n == 1 it
+    returns x without a launch. The JAX package pads each block to 128
+    lanes; this one moves the blocks as they are."""
+    n = x.shape[0]
+    if n == 1:
+        return x
+    if not x.is_cuda:
+        return ppermute_shift_plain(x, shift)
+    flat, shift = _flat_shift(x, shift)
+    L = flat.shape[1]
+    return _launch("ppermute_shift", PPERMUTE, flat, flat.shape, L, 0, 1,
+                   (L, shift), (flat.element_size(),)).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,7 @@ if-ladder:
 ``lookup`` is the dispatch-path entry: tuned's decide_* consult it
 after the correctness guards and fall back to the priors only on a
 cache miss. Not ported yet: ``stepprogram`` and ``slipstream`` (the
-training-step programs, ROADMAP Queue 1 item 9).
+training-step programs, ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def build_schedule(algo: str, nranks: int, *, segments: int = 2,
     enriched with live topology (ring order, host groups) when the
     world matches. The JAX package also reshapes these schedules from
     straggler penalties (its ``retune``), which wait for the control
-    planes (ROADMAP Queue 1 item 14); without penalties its schedules
+    planes (ROADMAP Queue 1 item 9); without penalties its schedules
     are these."""
     key = (algo, nranks, segments,
            tuple(map(tuple, groups)) if groups else None)
@@ -220,7 +220,7 @@ def lookup(opname: str, nbytes_per_rank: int, nranks: int, dtype=None,
     once the cache is active, so an untuned process is not drowned in
     miss counts. The JAX package's SLO re-ranking (its ``slo``) needs
     the live baselines its watchtower stamps, so it waits with the
-    control planes (ROADMAP Queue 1 item 14)."""
+    control planes (ROADMAP Queue 1 item 9)."""
     if not _cache._enable_var.value:
         return None
     fp = autotune.fingerprint()

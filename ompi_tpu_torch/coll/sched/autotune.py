@@ -21,7 +21,7 @@ cache (sched/cache.py). Two scoring modes (``coll_sched_autotune_mode``):
 Candidates whose transport tier the health ledger quarantines are
 never timed (``health.ledger`` is a seam in the port: nothing is
 quarantined yet). Not ported yet: ``program_*``, ``tune_step`` and
-``tune_residency``, the training-step choices (ROADMAP Queue 1 item 9).
+``tune_residency``, the training-step choices (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -123,7 +123,7 @@ def candidates(opname: str, nranks: int, dtype=None, op=None, *,
 #: package's, set for the TPU (device_pallas there: one fused kernel,
 #: its DMA overlapping the combine), kept so that model mode gives the
 #: same winners and digest in both packages. Coefficients fitted on the
-#: card are later work (ROADMAP Queue 1 item 6).
+#: card are later work (ROADMAP Queue 1 item 1).
 _TIER_COEFF = {"device_pallas": (0.8, 0.9e-4),
                "device": (1.0, 1.0e-4), "host": (30.0, 8.0e-4)}
 

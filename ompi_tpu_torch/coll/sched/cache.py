@@ -25,7 +25,7 @@ not be reinterpreted.
 
 What the port does not write yet: the retune plane's version bumps and
 rollbacks, the watchtower's baselines and the training step's tile and
-residency fields (ROADMAP Queue 1 items 9 and 14).
+residency fields (ROADMAP Queue 1 items 4 and 9).
 """
 
 from __future__ import annotations

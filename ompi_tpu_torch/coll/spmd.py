@@ -8,9 +8,11 @@ the native allreduce, bcast, reduce, allgather, reduce-scatter,
 alltoall, gather and scatter; the rank-ordered gather-reduce that the
 non-commutative guard routes to; the allreduce algorithms (recursive
 doubling with the non-power-of-two fold, ring, segmented ring,
-Rabenseifner, nonoverlapping) and the binomial reduce; and the alltoall
+Rabenseifner, nonoverlapping); the bcast (binomial, chain, pipelined,
+binary), reduce (binomial, pipelined), allgather (ring, bruck) and
+reduce-scatter (ring, recursive halving) algorithms; the alltoall
 (pairwise, bruck), gather and scatter (binomial) algorithms the priors
-pick.
+pick; and the ring shift and sendrecv that ring attention is built on.
 
 The round-based algorithms keep the JAX package's rounds and fold
 order: a ``ppermute`` there becomes a roll or an index over the rank
@@ -28,7 +30,7 @@ every rank, and reads only root's copy).
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -101,6 +103,95 @@ def reduce_scatter_native(x: torch.Tensor, op: Op) -> torch.Tensor:
     """(n, n, ...) -> (n, ...): rank r gets block r reduced over the
     ranks, by the same reduction as ``allreduce_native``."""
     return _reduce_ranks(x, op)
+
+
+def allgather_ring(x: torch.Tensor) -> torch.Tensor:
+    """Ring allgather: n-1 single-hop forwards to the right (reference:
+    coll_base_allgather.c, ..._intra_ring). (n, ...) -> (n, n, ...)."""
+    n = x.shape[0]
+    ranks = torch.arange(n, device=x.device)
+    out = x.new_zeros((n,) + tuple(x.shape))
+    out[ranks, ranks] = x
+    cur = x
+    for k in range(n - 1):
+        cur = torch.roll(cur, 1, 0)
+        out[ranks, (ranks - k - 1) % n] = cur
+    return out
+
+
+def allgather_bruck(x: torch.Tensor) -> torch.Tensor:
+    """Bruck allgather: ceil(log2 n) rounds of doubling exchanges with
+    rank-k, then a rotation into rank order (reference:
+    coll_base_allgather.c, ..._intra_bruck). (n, ...) -> (n, n, ...)."""
+    n = x.shape[0]
+    ranks = torch.arange(n, device=x.device)
+    have = x[:, None]  # rank r's row j: block (r + j) mod n
+    k = 1
+    while k < n:
+        # the round's ppermute i -> i-k: rank r receives from rank r+k
+        recv = torch.roll(have[:, :min(k, n - k)], -k, 0)
+        have = torch.cat([have, recv], 1)[:, :n]
+        k *= 2
+    return have[ranks[:, None], (ranks[None, :] - ranks[:, None]) % n]
+
+
+def _reduce_scatter_check(x: torch.Tensor) -> int:
+    """n of a rank-major (n, n, ...) reduce-scatter input; the JAX
+    package's refusal of a per-rank leading dim other than n."""
+    n = x.shape[0]
+    if x.ndim < 2 or x.shape[1] != n:
+        raise ArgumentError(
+            f"reduce_scatter input leading dim "
+            f"{x.shape[1] if x.ndim > 1 else None} != ranks {n}")
+    return n
+
+
+def reduce_scatter_ring(x: torch.Tensor, op: Op) -> torch.Tensor:
+    """Ring reduce-scatter, the first phase of the ring allreduce: the
+    partial of block b starts at rank b+1 and travels n-1 hops to the
+    right, folding ``combine(arrival, own block)`` at each rank
+    (reference: coll_base_reduce_scatter.c, ..._intra_ring).
+    (n, n, ...) -> (n, ...)."""
+    n = _reduce_scatter_check(x)
+    if n == 1:
+        return x[:, 0]
+    ranks = torch.arange(n, device=x.device)
+    carry = x[ranks, (ranks - 1) % n]
+    for k in range(n - 1):
+        carry = op.combine(torch.roll(carry, 1, 0),
+                           x[ranks, (ranks - k - 2) % n])
+    return carry
+
+
+def reduce_scatter_recursive_halving(x: torch.Tensor, op: Op
+                                     ) -> torch.Tensor:
+    """Recursive-halving reduce-scatter (power-of-two n, commutative
+    op): log2 n rounds, round k trades half the active window with rank
+    ^ n/2^(k+1) and folds ``combine(kept, received)`` (reference:
+    coll_base_reduce_scatter.c, ..._intra_basic_recursivehalving).
+    Other rank counts and ordered ops take the ring."""
+    n = _reduce_scatter_check(x)
+    if n == 1:
+        return x[:, 0]
+    if n & (n - 1) or not op.commutative or op.joint:
+        return reduce_scatter_ring(x, op)
+    ranks = torch.arange(n, device=x.device)
+    buf = x.clone()
+    lo = torch.zeros(n, dtype=torch.long, device=x.device)
+    half = n // 2
+    while half >= 1:
+        keep_upper = (ranks & half) != 0
+        send_lo = torch.where(keep_upper, lo, lo + half)
+        keep_lo = torch.where(keep_upper, lo + half, lo)
+        cols = torch.arange(half, device=x.device)
+        rows = ranks[:, None]
+        payload = buf[rows, send_lo[:, None] + cols]
+        kept = buf[rows, keep_lo[:, None] + cols]
+        buf[rows, keep_lo[:, None] + cols] = op.combine(
+            kept, payload[ranks ^ half])
+        lo = keep_lo
+        half //= 2
+    return buf[ranks, lo]
 
 
 def _allreduce_gather_reduce(x: Any, op: Op) -> Any:
@@ -263,6 +354,173 @@ def allreduce_nonoverlapping(x: torch.Tensor, op: Op, root: int = 0
     contrib = torch.where(_ranks_mask(is_root, red), red,
                           torch.zeros((), dtype=red.dtype, device=red.device))
     return _broadcast_ranks(torch.sum(contrib, 0, dtype=red.dtype), n)
+
+
+def _tree_map(fn, x: Any, *rest: Any) -> Any:
+    """``jax.tree.map`` over a tensor or a tuple/list of tensors."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(fn(*leaves) for leaves in zip(x, *rest))
+    return fn(x, *rest)
+
+
+def _leaves(x: Any) -> list:
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def bcast_binomial(x: Any, root: int = 0) -> Any:
+    """Binomial-tree broadcast: log2(n) rounds, in round k the first 2^k
+    (root-relative) ranks send to rank+2^k (reference: coll_base_bcast.c,
+    ompi_coll_base_bcast_intra_binomial)."""
+    n = _leaves(x)[0].shape[0]
+    if n == 1:
+        return x
+    vrank = (torch.arange(n, device=_leaves(x)[0].device) - root) % n
+    for k in range((n - 1).bit_length()):
+        dist = 1 << k
+        perm = [((v + root) % n, (v + dist + root) % n)
+                for v in range(min(dist, n - dist))]
+        takes = (vrank >= dist) & (vrank < 2 * dist)
+        x = _tree_map(lambda leaf: torch.where(
+            _ranks_mask(takes, leaf), _permute(leaf, perm), leaf), x)
+    return x
+
+
+def _chain_hops(v: torch.Tensor, vrank: torch.Tensor, perm) -> torch.Tensor:
+    """n-1 single hops down the chain ``perm``: after hop h the rank at
+    chain position h+1 holds what position 0 held."""
+    for h in range(v.shape[0] - 1):
+        v = torch.where(_ranks_mask(vrank == h + 1, v), _permute(v, perm), v)
+    return v
+
+
+def _chain_perm(n: int, root: int) -> list:
+    return [((root + i) % n, (root + i + 1) % n) for i in range(n - 1)]
+
+
+def bcast_chain(x: Any, root: int = 0) -> Any:
+    """Chain broadcast: the payload hops rank to rank down the
+    (root-relative) chain, n-1 single-hop rounds (reference:
+    coll_base_bcast.c, ..._intra_chain with fanout 1)."""
+    n = _leaves(x)[0].shape[0]
+    if n == 1:
+        return x
+    vrank = (torch.arange(n, device=_leaves(x)[0].device) - root) % n
+    perm = _chain_perm(n, root)
+    return _tree_map(lambda leaf: _chain_hops(leaf, vrank, perm), x)
+
+
+def _segment_leaf(leaf: torch.Tensor, segments: int):
+    """Each rank's row of ``leaf`` flattened and cut at the JAX
+    package's static bounds (``numpy.linspace`` over the per-rank
+    element count, empty chunks dropped), plus the restore function."""
+    import numpy as np
+
+    flat = leaf.reshape(leaf.shape[0], -1)
+    bounds = np.linspace(0, flat.shape[1], segments + 1).astype(int)
+    chunks = [flat[:, int(a):int(b)] for a, b in zip(bounds, bounds[1:])
+              if b > a]
+
+    def restore(parts):
+        return torch.cat(parts, 1).reshape(leaf.shape)
+
+    return chunks, restore
+
+
+def _auto_segments(x: Any, target_bytes: int = 64 * 1024, cap: int = 8
+                   ) -> int:
+    """Segments for ``x``'s bytes per rank: one per ``target_bytes``,
+    between 1 and ``cap``."""
+    total = sum((leaf.numel() // max(leaf.shape[0], 1)) * leaf.element_size()
+                for leaf in _leaves(x))
+    return int(max(1, min(cap, total // max(target_bytes, 1))))
+
+
+def bcast_pipelined(x: Any, root: int = 0,
+                    segments: Optional[int] = None) -> Any:
+    """Pipelined (segmented-chain) broadcast: the payload splits into
+    static segments, each going down the chain on its own (reference:
+    coll_base_bcast.c, ..._intra_pipeline). One segment is the chain."""
+    n = _leaves(x)[0].shape[0]
+    if n == 1:
+        return x
+    segs = segments if segments else _auto_segments(x)
+    if segs <= 1:
+        return bcast_chain(x, root)
+    vrank = (torch.arange(n, device=_leaves(x)[0].device) - root) % n
+    perm = _chain_perm(n, root)
+
+    def pipe_one(leaf):
+        chunks, restore = _segment_leaf(leaf, segs)
+        return restore([_chain_hops(c, vrank, perm) for c in chunks])
+
+    return _tree_map(pipe_one, x)
+
+
+def bcast_binary(x: Any, root: int = 0) -> Any:
+    """Binary-tree broadcast: (root-relative) node v forwards to children
+    2v+1 and 2v+2, one round per level and child side (reference:
+    coll_base_bcast.c, ..._intra_bintree)."""
+    n = _leaves(x)[0].shape[0]
+    if n == 1:
+        return x
+    vrank = (torch.arange(n, device=_leaves(x)[0].device) - root) % n
+
+    def phys(v: int) -> int:
+        return (v + root) % n
+
+    def tree_one(v):
+        level_start, width = 0, 1  # first vrank and size of the level
+        while level_start + width - 1 < n - 1:
+            for side in (1, 2):
+                perm = [(phys(s), phys(2 * s + side))
+                        for s in range(level_start,
+                                       min(level_start + width, n))
+                        if 2 * s + side < n]
+                if not perm:
+                    continue
+                takes_lo = 2 * level_start + 1
+                takes_hi = 2 * (level_start + width - 1) + 2
+                takes = ((vrank >= takes_lo) & (vrank <= takes_hi)
+                         & (vrank % 2 == side % 2))
+                v = torch.where(_ranks_mask(takes, v), _permute(v, perm), v)
+            level_start = 2 * level_start + 1
+            width = 2 * width
+        return v
+
+    return _tree_map(tree_one, x)
+
+
+def reduce_pipelined(x: Any, op: Op, root: int = 0,
+                     segments: Optional[int] = None) -> Any:
+    """Pipelined chain reduction toward root: partials flow down the
+    reverse chain, combining at every hop, in static segments. Root's
+    row is x_root + (x_root+1 + (...)), rank order when root is 0, so a
+    non-commutative op runs the chain there and the ordered
+    gather-reduce elsewhere; a joint op always takes the gather-reduce
+    (reference: coll_base_reduce.c, ..._intra_pipeline). Only root's row
+    is the reduction; the others hold suffix partials."""
+    n = _leaves(x)[0].shape[0]
+    if n == 1:
+        return x
+    if op.joint or (not op.commutative and root != 0):
+        return _allreduce_gather_reduce(x, op)
+    vrank = (torch.arange(n, device=_leaves(x)[0].device) - root) % n
+    segs = segments if segments else _auto_segments(x)
+    rev = [((root + i + 1) % n, (root + i) % n) for i in range(n - 1)]
+
+    def chain_reduce(v):
+        for h in range(n - 1):
+            combines = _ranks_mask(vrank == n - 2 - h, v)
+            v = torch.where(combines, op.combine(v, _permute(v, rev)), v)
+        return v
+
+    def pipe_one(leaf):
+        if segs <= 1:
+            return chain_reduce(leaf)
+        chunks, restore = _segment_leaf(leaf, segs)
+        return restore([chain_reduce(c) for c in chunks])
+
+    return _tree_map(pipe_one, x)
 
 
 def reduce_binomial(x: torch.Tensor, op: Op, root: int = 0
@@ -428,3 +686,20 @@ def scatter_binomial(x: torch.Tensor, root: int = 0) -> torch.Tensor:
             src, dst = (vr + root) % n, (vr + blk + root) % n
             buf[dst, vr + blk:vr + 2 * blk] = buf[src, vr + blk:vr + 2 * blk]
     return buf[ranks, vrank]
+
+
+# ---------------------------------------------------------------------------
+# sendrecv / ring-shift building blocks
+# ---------------------------------------------------------------------------
+
+def ring_shift(x: Any, shift: int = 1) -> Any:
+    """Every rank's row (of each leaf) moves ``shift`` ranks round the
+    ring: rank r receives rank r-shift's (the ring-attention hop;
+    ``lax.ppermute`` over ``(i, i+shift)`` in the JAX package)."""
+    return _tree_map(lambda leaf: torch.roll(leaf, shift, 0), x)
+
+
+def sendrecv(x: Any, perm: Sequence[tuple[int, int]]) -> Any:
+    """Explicit (src, dst) permutation exchange of every leaf's rows; a
+    rank no pair reaches receives zeros."""
+    return _tree_map(lambda leaf: _permute(leaf, list(perm)), x)

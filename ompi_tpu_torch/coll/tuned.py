@@ -10,12 +10,11 @@ compiler's winner cache (``sched.lookup``) > static priors
 (``sched/priors.prior_*``, where the quantized-wire gate comes first
 for allreduce). The host tier, the circuit breaker and the
 health/fault seams are not ported yet: a fault in the chosen tier
-propagates to the caller instead of degrading to the next tier. The
-allreduce, alltoall, gather and scatter priors' names are all ported,
-and reduce's ``binomial``; the spmd algorithms the bcast, allgather
-and reduce_scatter priors pick with ``coll_tuned_prefer_native=false``
-(``binomial``, ``binary``, ``ring``, ...) are not yet: they raise
-``ArgumentError``.
+propagates to the caller instead of degrading to the next tier. Every
+name the priors return is ported, with ``coll_tuned_prefer_native``
+on or off, and every spmd algorithm name of the JAX package's bcast,
+reduce, allgather and reduce_scatter tables, so a rules file naming
+one is obeyed, as there.
 
 Tiers registered lazily, as in the JAX package: the hand kernels
 (``pallas_*``), the schedule compiler (``sched_*``, whose
@@ -109,14 +108,27 @@ ALLREDUCE_ALGOS: dict[str, Callable] = {
     "nonoverlapping": spmd.allreduce_nonoverlapping,
     "gather_reduce": spmd._allreduce_gather_reduce,
 }
-ALLGATHER_ALGOS: dict[str, Callable] = {"native": spmd.allgather_native}
-BCAST_ALGOS: dict[str, Callable] = {"native": spmd.bcast_native}
+ALLGATHER_ALGOS: dict[str, Callable] = {
+    "native": spmd.allgather_native,
+    "ring": spmd.allgather_ring,
+    "bruck": spmd.allgather_bruck,
+}
+BCAST_ALGOS: dict[str, Callable] = {
+    "native": spmd.bcast_native,
+    "binomial": spmd.bcast_binomial,
+    "chain": spmd.bcast_chain,
+    "binary": spmd.bcast_binary,
+    "pipelined": spmd.bcast_pipelined,
+}
 REDUCE_ALGOS: dict[str, Callable] = {
     "native": spmd.reduce_native,
     "binomial": spmd.reduce_binomial,
+    "pipelined": spmd.reduce_pipelined,
 }
 REDUCE_SCATTER_ALGOS: dict[str, Callable] = {
     "native": spmd.reduce_scatter_native,
+    "ring": spmd.reduce_scatter_ring,
+    "recursive_halving": spmd.reduce_scatter_recursive_halving,
 }
 ALLTOALL_ALGOS: dict[str, Callable] = {
     "native": spmd.alltoall_native,

@@ -1,1 +1,1 @@
-"""Health plane (a seam until ROADMAP Queue 1 item 14 ports it)."""
+"""Health plane (a seam until ROADMAP Queue 1 item 9 ports it)."""

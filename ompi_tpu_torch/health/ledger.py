@@ -2,7 +2,7 @@
 
 The JAX package's ``health/ledger.py`` quarantines transport tiers that
 fail and ``LEDGER.is_denied`` keeps the autotuner from timing them.
-The port has no health plane yet (ROADMAP Queue 1 item 14): no tier is
+The port has no health plane yet (ROADMAP Queue 1 item 9): no tier is
 ever quarantined, so ``is_denied`` is always False.
 """
 

@@ -1,6 +1,6 @@
 """The hardware fingerprint (port of
 ``ompi_tpu/topo/topology.py:hardware_fingerprint``; the rest of topo is
-not ported yet, ROADMAP Queue 1 item 11)."""
+not ported yet, ROADMAP Queue 1 item 6)."""
 
 from __future__ import annotations
 

@@ -1,1 +1,1 @@
-"""Tracing (a seam until ROADMAP Queue 1 item 14 ports it)."""
+"""Tracing (a seam until ROADMAP Queue 1 item 9 ports it)."""

@@ -308,8 +308,8 @@ def test_size_one_and_argument_errors(worlds):
         c.reduce(torch.ones(8, 4), "sum", root=-1)
     with pytest.raises(ArgumentError):
         c.reduce_scatter_block(torch.ones(8, 3, 4), "sum")
-    with both_vars({"coll_tuned_bcast_algorithm": "binomial"}):
-        with pytest.raises(ArgumentError):  # an spmd name not ported yet
+    with both_vars({"coll_tuned_bcast_algorithm": "no_such_algorithm"}):
+        with pytest.raises(ArgumentError):  # a name neither package has
             tw.dup().bcast(torch.ones(8, 4), 0)
 
 

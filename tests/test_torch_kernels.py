@@ -1,11 +1,12 @@
-"""The port's fourteen CUDA kernels on a card, each against its plain
+"""The port's sixteen CUDA kernels on a card, each against its plain
 version: ring_allreduce, ring_allreduce_rd, ring_allreduce_chunked,
 ring_reduce_scatter, ring_allgather, tree_reduce, tree_bcast,
 ring_allreduce_bidir, ring_alltoall, linear_gather, linear_scatter,
 sched_table (the schedule compiler's table-driven kernel, on ring,
 segmented, reduce-scatter, allgather, fused and window programs),
-selfdma_chunked (the one-rank chunked identity) and quant_allreduce
-(the ring over the int8 wire).
+selfdma_chunked (the one-rank chunked identity), quant_allreduce
+(the ring over the int8 wire), ppermute_shift (one ring hop) and
+ring_attention (exact attention over the ring).
 
 Marked ``gpu``: without a CUDA card every test here skips with a reason
 (the kernels have no CPU mode; their plain versions are tested on the
@@ -17,13 +18,19 @@ PyTorch is installed:
 
 Tolerance: bitwise. The kernels run the same schedule as the plain
 versions, combining in the same order. Each launch adds exactly one to
-its kernel's count and leaves every flag at 0.
+its kernel's count and leaves every flag at 0. ring_attention alone
+folds its keys in tiles with an online softmax inside each step, where
+the plain version folds each step's block whole: it is held to the JAX
+package's 2e-4 for float32 (TF32 off) and to one output ulp for
+bfloat16 and float16 (both round one float32 result once), and is
+bitwise equal to itself from launch to launch.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ompi_tpu_torch.coll import pallas_attn as pa
 from ompi_tpu_torch.coll import pallas_ring as pr
 from ompi_tpu_torch.coll import quant
 from ompi_tpu_torch.coll.sched import ir
@@ -292,3 +299,58 @@ def test_quant_allreduce_refuses_what_it_does_not_take(cuda):
     assert blocks.data_ptr() % 16
     got = _launched_once(quant.QUANT, lambda: quant.quant_allreduce(blocks))
     assert torch.equal(got, quant.quant_allreduce_plain(blocks))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8",
+                                   "float64"])
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_ppermute_shift_matches_plain_on_card(cuda, n, dtype):
+    x = _input(n, 13 * 9, "int32", cuda).to(getattr(torch, dtype))
+    for shift in (1, -1, 3):
+        got = _launched_once(pr.PPERMUTE, lambda: pr.ppermute_shift(x, shift))
+        assert torch.equal(got, pr.ppermute_shift_plain(x, shift))
+        assert torch.equal(got, torch.roll(x, shift, 0))
+    one = x[:1]
+    before = pr.PPERMUTE.launches
+    assert pr.ppermute_shift(one, 1) is one  # n == 1: no launch
+    assert pr.PPERMUTE.launches == before
+
+
+# (atol, rtol). float32: the JAX package's 2e-4. bfloat16 and float16:
+# one ulp of the output (2**-7, 2**-10 of |want|; 1e-5 near 0): the
+# kernel and its plain version both compute in float32 and round once.
+ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-5, 2.0 ** -7),
+            torch.float16: (1e-5, 2.0 ** -10)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(ATTN_TOL, key=str))
+@pytest.mark.parametrize("n,t,h,dh", [(4, 8, 2, 128), (3, 100, 3, 24),
+                                      (1, 70, 2, 64), (8, 64, 4, 256)])
+def test_ring_attention_matches_plain_on_card(cuda, n, t, h, dh, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(n * t)
+    q, k, v = (torch.randn((n, t, h, dh), generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    atol, rtol = ATTN_TOL[dtype]
+    for causal in (True, False):
+        got = _launched_once(
+            pa.ATTN, lambda: pa.ring_attention_block(q, k, v, causal))
+        want = pa.ring_attention_block_plain(q, k, v, causal)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        again = _launched_once(
+            pa.ATTN, lambda: pa.ring_attention_block(q, k, v, causal))
+        assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_ring_attention_refuses_what_it_does_not_take(cuda):
+    x = torch.ones(2, 8, 2, 12, device=cuda)
+    with pytest.raises(ArgumentError):
+        pa.ring_attention_block(x, x, x)  # Dh % 8 != 0
+    y = torch.ones(2, 8, 2, 16, device=cuda, dtype=torch.float64)
+    with pytest.raises(ArgumentError):
+        pa.ring_attention_block(y, y, y)
