@@ -14,7 +14,9 @@ The sixteen kernels (``ompi_tpu_torch/csrc/``): ``ring_allreduce``,
 compiler's table-driven kernel), ``selfdma_chunked`` (the one-rank
 chunked identity), ``quant_allreduce`` (the ring over the int8 wire),
 ``ppermute_shift`` (one ring hop) and ``ring_attention`` (exact
-attention over the ring).
+attention over the ring: bfloat16 and float16 products on the tensor
+cores, float32 on the CUDA cores, the causal mask's hidden folds
+skipped and the causal ring's thread blocks split by fold work).
 
 Phases (any failure raises and exits non-zero):
 
@@ -156,7 +158,12 @@ Phases (any failure raises and exits non-zero):
    ``also``; its bound is the larger of the bytes (q, k, v, out once)
    over 3.35 TB/s and the operations (4 S^2 H Dh, causal 4 H Dh
    S(S+1)/2) over 989 TFLOP/s bfloat16 or 67 TFLOP/s float32, and its
-   library call ``scaled_dot_product_attention`` on (1, H, S, Dh).
+   library call ``scaled_dot_product_attention`` on (1, H, S, Dh). Each
+   of its four cases also carries ``n1_ms``, the kernel at n = 1 on the
+   whole 4096-token sequence (every block on one rank: the same
+   arithmetic with no ring, checked against its plain version), and the
+   causal cases ``causal_over_noncausal``, their time over the
+   non-causal case's.
 5. The last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -1745,6 +1752,12 @@ def attn_rows(gen, errs, launches) -> list:
     cases = []
     for dtype, causal in ATTN_CASES:
         q, k, v, _ = ATTN_OUT[dtype, causal]
+        # the same sequence on one rank: every block folds, no ring
+        q1, k1, v1 = (t.reshape(1, ATTN_SEQ, ATTN_HEADS, ATTN_HEAD_DIM)
+                      for t in (q, k, v))
+        within(pa.ring_attention_block(q1, k1, v1, causal),
+               pa.ring_attention_block_plain(q1, k1, v1, causal),
+               ATTN_TOL[dtype], f"ring_attention n=1 {dtype} {causal}")
         itemsize = q.element_size()
         nbytes = 4 * q.numel() * itemsize  # q, k, v read, out written
         flops = attn_flops(causal)
@@ -1765,6 +1778,9 @@ def attn_rows(gen, errs, launches) -> list:
             "library_ms": p50_ms(lambda: F.scaled_dot_product_attention(
                 lq, lk, lv, is_causal=causal), KERNEL_REPS),
             "flops": flops, "bytes": nbytes,
+            "n1_ms": p50_ms(lambda: pa.ring_attention_block(q1, k1, v1,
+                                                            causal),
+                            KERNEL_REPS),
         }
         case["tflops_per_s"] = flops / case["ms"] / 1e9
         cases.append(case)
@@ -1772,8 +1788,14 @@ def attn_rows(gen, errs, launches) -> list:
             f"{case['ms']:.4f} ms p50 (bound {case['bound_ms']:.4f} ms by "
             f"{case['bound_by']}, plain {case['plain_ms']:.3f} ms, SDPA "
             f"{case['library_ms']:.4f} ms, {case['tflops_per_s']:.2f} "
-            f"TFLOP/s)")
-        del lq, lk, lv
+            f"TFLOP/s); n = 1 (no ring) {case['n1_ms']:.4f} ms")
+        del lq, lk, lv, q1, k1, v1
+    for case in cases:
+        if case["causal"]:
+            other = cases[ATTN_CASES.index((case["dtype"], False))]
+            case["causal_over_noncausal"] = case["ms"] / other["ms"]
+            log(f"[time] ring_attention {case['dtype']}: causal / "
+                f"non-causal {case['causal_over_noncausal']:.4f}")
     main = cases[ATTN_CASES.index(ATTN_MAIN)]
     attn = {
         "name": "ring_attention", "route": "cuda",
@@ -1782,7 +1804,8 @@ def attn_rows(gen, errs, launches) -> list:
         "launches": launches["ring_attention"],
         "max_abs_err": errs["ring_attention"],
         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")},
+                                "library_ms", "n1_ms",
+                                "causal_over_noncausal")},
         "nranks": N, "tokens_per_rank": ATTN_T, "heads": ATTN_HEADS,
         "head_dim": ATTN_HEAD_DIM, "dtype": ATTN_MAIN[0],
         "causal": ATTN_MAIN[1], "op": None,

@@ -20,24 +20,42 @@ the next slot, stores its current block into that slot of the right
 neighbour, folds its current block into the accumulators and waits for
 the next block to arrive from the left. A slot is credited to the left
 neighbour only once it has been both computed on and forwarded (steps
-``< n-2``), after a post-seed credit for slot 1. Every flag ends at 0.
+``1 .. n-3``), after post-seed credits. Every flag ends at 0.
 
-Two things differ, because thread blocks on one card are not one TPU
-core:
+What differs, because thread blocks on one card are not one TPU core:
 
-- Each rank is played by G thread blocks (a persistent grid of n x G,
-  every block resident), and every block reads the whole KV slot. So a
-  slot has arrived only when all G senders' shares of the forward copy
-  have landed, and it is free only when all G blocks of the receiver
-  are done computing on it and forwarding their share: the arrival and
-  credit flags are one per receiving block, and each of the G blocks
-  on the other side adds one to each, so every wait counts to G and
-  subtracts G. ``simulate_ring_attention`` runs this with G blocks per
-  rank; ``count="one"`` (one credit, from block 0 alone, awaited as 1)
-  is the negative control that shows the count matters.
+- Each rank is played by its own thread blocks of one persistent grid
+  (every block resident), and every block reads the whole KV slot. So
+  a slot has arrived only when every share of the sending rank's
+  forward copy has landed, and it is free only when every block of the
+  reading rank is done computing on it and forwarding its share. The
+  arrival and credit flags are one per receiving block; each block on
+  the other side adds one to each. An arrival wait counts to the
+  sending rank's blocks, a credit wait to the reading rank's, and
+  subtracts as much, so every flag ends at 0.
+- Under the causal mask, rank ``me`` skips the fold of every step whose
+  block comes from a later rank (``src > me``): every key of it lies
+  after every query of ``me``. Step 0 is the rank's own block, whose
+  first key every query sees, so the running max is finite from then
+  on; a wholly masked block then gives ``p = exp(-1e30 - m) = 0`` and
+  a correction of ``exp(0) = 1``, and m, l and o stay as they were,
+  bit for bit. The block is still forwarded and credited. So the ranks
+  fold ``me + 1/2`` blocks' worth each, and ``split_blocks`` gives each
+  rank blocks by that work (no fewer than the two-slot ring's coupling
+  asks for the light ranks), floored at what its share of the forward
+  copy needs. Without the mask every rank gets an equal share.
 - Step 0 reads the rank's own k and v straight from the inputs (the
-  JAX kernel first copies them into slot 0); slot 0 is first written by
-  the left neighbour's step 1.
+  JAX kernel first copies them into slot 0 and credits it after step
+  0), so both slots start free: a post-seed credit for each. On the card
+  a copy warp forwards while the block folds, and whichever finishes
+  with a slot last credits it (the copy warp alone where the fold is
+  skipped), so a rank that folds little holds up only the slots it
+  folds.
+
+``simulate_ring_attention`` runs this with any per-rank block counts;
+``count="one"`` (one credit, from block 0 alone, awaited as 1) and
+``count="recv"`` (arrivals awaited as the receiving rank's own block
+count) are the negative controls that show the counts matter.
 
 ``supported`` is the port's own gate: float32, bfloat16 or float16,
 ``Dh % 8 == 0`` (every K/V row is whole 16-byte vectors) and ``Dh <=
@@ -51,8 +69,9 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import itertools
 import random
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -64,6 +83,12 @@ from .pallas_ring import _I, _P, _PAUSE, _checked, _drive, _residue
 
 _NEG = -1e30
 MAX_HEAD_DIM = 256
+#: Query rows of one work item of the kernel (a tile of one head).
+TILE_ROWS = 64
+#: Most bytes of a step's forward copy that one block takes on when the
+#: split is uneven: a rank's blocks are floored at slot bytes / this (at
+#: most half an equal share).
+FWD_SHARE_BYTES = 1 << 20
 
 ATTN = KernelCounter("ring_attention")
 
@@ -129,79 +154,148 @@ def _fold(q, kb, vb, me: int, src: int, h: int, causal: bool, scale: float,
     m[me, h] = m_new
 
 
+def split_blocks(n: int, total: int, causal: bool, floor: int = 1,
+                 items: int = 0) -> list[int]:
+    """Thread blocks per rank of a grid of ``total`` (>= n) blocks.
+
+    Without the causal mask every rank folds n blocks: an equal split,
+    the first ``total % n`` ranks one more. Under it rank ``me`` folds
+    ``me + 1/2`` blocks' worth (the masked folds skipped), in its steps
+    0 .. me, so its work weighs ``2 me + 1``. Work alone under-serves the
+    light ranks: with two slots a slot is refilled only once its reader
+    has folded it, so rank j's early folds gate the blocks the heavier
+    ranks wait for later (the credits travel back along the ring). Each
+    rank's weight is therefore at least ``me + n/2 + 1`` (found on an
+    NVIDIA H100 at 8 ranks: PERF.md, PR 7). Every rank gets at least
+    ``floor`` blocks (what its share of the forward copy needs), the rest
+    of the grid goes in proportion to the weights; with ``items`` (work
+    items of one rank) each count is then cut to the fewest blocks that
+    take the same number of items per block, and the blocks set free go
+    one at a time to the rank whose weighted items per block they lower
+    the most, or else to the ranks in order. The counts sum to
+    ``total``."""
+    if n < 1 or total < n:
+        raise ArgumentError(f"need at least one block per rank: {total} "
+                            f"blocks for {n} ranks")
+    if not causal:
+        return [total // n + (r < total % n) for r in range(n)]
+    floor = max(1, min(floor, total // n))
+    weight = [max(2 * r + 1, r + n / 2 + 1) for r in range(n)]
+    k = 0  # ranks below k sit at the floor (the weights grow with r)
+    while k < n - 1 and ((total - k * floor) * weight[k]
+                         < floor * sum(weight[k:])):
+        k += 1
+    extra, whole = total - k * floor, sum(weight[k:])
+    cum = [0.0, *itertools.accumulate(weight[k:])]
+    counts = [floor] * k + [int(extra * cum[i + 1] / whole)
+                            - int(extra * cum[i] / whole)
+                            for i in range(n - k)]
+    counts[-1] += total - sum(counts)
+    if items > 0:
+        per = [-(-items // g) for g in counts]  # items of the busiest block
+        counts = [max(floor, -(-items // p)) for p in per]
+        spare = total - sum(counts)
+        while spare > 0:
+            fits = [r for r in range(n) if per[r] > 1
+                    and -(-items // (per[r] - 1)) - counts[r] <= spare]
+            if not fits:
+                break
+            r = max(fits, key=lambda r: (weight[r] * per[r], r))
+            per[r] -= 1
+            need = max(counts[r], -(-items // per[r]))
+            spare -= need - counts[r]
+            counts[r] = need
+        for r in range(spare):
+            counts[r % n] += 1
+    return counts
+
+
 def simulate_ring_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True, *,
-                            blocks: int = 1, count: str = "port",
+                            blocks: Union[int, Sequence[int]] = 1,
+                            count: str = "port",
                             rng: Optional[random.Random] = None):
     """Run the kernel's slot and credit schedule on rank-major (n, T, H,
-    Dh) q, k, v, with ``blocks`` (G) programs per rank: block g forwards
-    share g of the slot's rows and folds heads g, g+G, ... Each program
-    is a generator for ``pallas_ring._drive``: lock-step with ``rng``
-    None, a seeded random interleaving otherwise. Every head's fold is a
-    scheduling point, and it checks that every share of the slot it
-    reads still holds the block it expects (a fault is recorded in the
-    residue otherwise).
+    Dh) q, k, v, with ``blocks`` programs per rank (one count for every
+    rank, or one per rank): block g of rank r forwards share g of the
+    slot's rows and folds heads g, g+G_r, ...; under the causal mask it
+    skips the fold of a block from a later rank, as the kernel does.
+    Each program is a generator for ``pallas_ring._drive``: lock-step
+    with ``rng`` None, a seeded random interleaving otherwise. Every
+    head's fold is a scheduling point, and it checks that every share of
+    the slot it reads still holds the block it expects (a fault is
+    recorded in the residue otherwise).
 
-    ``count`` "port": every block of the receiver credits every block
-    of the sender, and a wait counts to G; "one": block 0 alone credits
-    and the sender waits for 1 (the negative control). Returns (out,
+    ``count`` "port": every block of the receiver credits every block of
+    the sender; an arrival wait counts to the sending rank's blocks and
+    a credit wait to the reading rank's. "one": block 0 alone credits
+    and the sender waits for 1; "recv": an arrival wait counts to the
+    receiving rank's own blocks (both negative controls). Returns (out,
     residue): residue maps every flag not back at 0, and every early
     read, to its count."""
-    if count not in ("port", "one"):
+    if count not in ("port", "one", "recv"):
         raise ArgumentError(f"unknown credit count {count!r}")
-    if blocks < 1:
-        raise ArgumentError(f"need at least one block per rank, got {blocks}")
     _check(q, k, v)
     n, t, nh, dh = q.shape
-    g_all = blocks
+    g_of = [blocks] * n if isinstance(blocks, int) else list(blocks)
+    if len(g_of) != n or min(g_of) < 1:
+        raise ArgumentError(f"need at least one block for each of {n} "
+                            f"ranks, got {blocks}")
     scale = _scale(dh)
     slots = k.new_empty((n, 2, 2 * t, nh, dh))
-    bounds = [2 * t * g // g_all for g in range(g_all + 1)]
     m = torch.full((n, nh, t), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((n, nh, t), dtype=torch.float32, device=q.device)
     o = torch.zeros((n, nh, t, dh), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     sems: dict = collections.defaultdict(int)
     tags: dict = {}  # (rank, slot, share) -> the rank whose block it holds
-    need = g_all if count == "port" else 1
 
-    def credit(g, to, slot):
-        if count == "port" or g == 0:
-            for b in range(g_all):
-                sems[to, "cap", slot, b] += 1
+    def credit(me, g, slot):
+        left = (me - 1) % n
+        if count != "one" or g == 0:
+            for b in range(g_of[left]):
+                sems[left, "cap", slot, b] += 1
 
     def block(me, g):
         right, left = (me + 1) % n, (me - 1) % n
-        rows = slice(bounds[g], bounds[g + 1])
+        mine = g_of[me]
+        rows = slice(2 * t * g // mine, 2 * t * (g + 1) // mine)
         own = torch.cat([k[me], v[me]])
-        if n > 1:
-            credit(g, left, 1)  # post-seed: my slot 1 is free
+        cap_need = 1 if count == "one" else g_of[right]
+        recv_need = mine if count == "recv" else g_of[left]
+        if n > 1:  # post-seed: both my slots are free (step 0 reads k, v)
+            credit(me, g, 1)
+        if n > 2:
+            credit(me, g, 0)
         for step in range(n):
             slot, nslot = step % 2, (step + 1) % 2
             src = (me - step) % n
             cur = own if step == 0 else slots[me, slot]
             if step < n - 1:
-                yield (me, "cap", nslot, g), need
+                yield (me, "cap", nslot, g), cap_need
                 slots[right, nslot, rows] = cur[rows]
                 tags[right, nslot, g] = src
-                for b in range(g_all):
+                for b in range(g_of[right]):
                     sems[right, "recv", nslot, b] += 1
                 yield _PAUSE
-            for h in range(g, nh, g_all):
-                if step and any(tags.get((me, slot, s)) != src
-                                for s in range(g_all)):
-                    sems["early", me, step, h] += 1
-                _fold(q, cur[:t], cur[t:], me, src, h, causal, scale, m, l, o)
-                yield _PAUSE
-            if step < n - 2:
-                credit(g, left, slot)
+            if not (causal and src > me):
+                for h in range(g, nh, mine):
+                    if step and any(tags.get((me, slot, s)) != src
+                                    for s in range(g_of[left])):
+                        sems["early", me, step, h] += 1
+                    _fold(q, cur[:t], cur[t:], me, src, h, causal, scale,
+                          m, l, o)
+                    yield _PAUSE
+            if 1 <= step < n - 2:
+                credit(me, g, slot)
             if step < n - 1:
-                yield (me, "recv", nslot, g), g_all
-        for h in range(g, nh, g_all):
+                yield (me, "recv", nslot, g), recv_need
+        for h in range(g, nh, mine):
             den = torch.clamp(l[me, h], min=1e-30)[:, None]
             out[me, :, h] = (o[me, h] / den).to(q.dtype)
 
-    _drive([block(r, g) for r in range(n) for g in range(g_all)], sems, rng)
+    _drive([block(r, g) for r in range(n) for g in range(g_of[r])], sems,
+           rng)
     return out, _residue(sems)
 
 
@@ -219,27 +313,46 @@ def _lib():
     """csrc/ring_attention.cu's two C functions, built on first use."""
     lib = build.library("ring_attention")
     if lib.ompi_ring_attention.argtypes is None:
-        # n, T, H, Dh, dtype, dev -> blocks per rank (< 0: CUDA error)
-        lib.ompi_ring_attention_blocks.argtypes = [_I] * 6
+        # T, H, Dh, dtype, dev -> resident blocks (< 0: CUDA error)
+        lib.ompi_ring_attention_blocks.argtypes = [_I] * 5
         lib.ompi_ring_attention_blocks.restype = _I
-        # q, k, v, out, slots, acc_o, acc_ml, sems, n, blocks, T, H, Dh,
-        # causal, scale, dtype, dev, stream
+        # q, k, v, out, slots, acc_o, acc_ml, sems, offs, n, blocks, T, H,
+        # Dh, causal, scale, dtype, dev, stream
         lib.ompi_ring_attention.argtypes = (
-            [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P])
+            [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P])
         lib.ompi_ring_attention.restype = _I
     return lib
 
 
+def padded_head_dim(dh: int) -> int:
+    """The head dim of the kernel's half-precision tiles: Dh padded with
+    zeros to 32, 64, 128 or 256 (the tensor-core product's widths)."""
+    return max(32, 1 << (dh - 1).bit_length())
+
+
 @functools.lru_cache(maxsize=None)
-def _blocks(n: int, t: int, nh: int, dh: int, code: int, dev: int) -> int:
-    """Thread blocks per rank (G) of the resident grid, asked of the card
-    once per shape and device; the query also allows the kernel its
-    shared memory there, which every launch relies on."""
-    blocks = _lib().ompi_ring_attention_blocks(n, t, nh, dh, code, dev)
-    if blocks < 0:
+def _plan(n: int, t: int, nh: int, dh: int, code: int, causal: bool,
+          dev: int):
+    """(blocks per rank, their prefix offsets on the card) of the
+    resident grid, asked of the card once per shape and device; the
+    query also allows the kernel its shared memory there, which every
+    launch relies on. The grid has every block that fits, at most one
+    per work item of the rank times n."""
+    resident = _lib().ompi_ring_attention_blocks(t, nh, dh, code, dev)
+    if resident < n:
         raise KernelError(f"ring_attention: no resident grid for {n} ranks "
-                          f"(CUDA error {-blocks})")
-    return blocks
+                          f"({resident} blocks fit; < 0: CUDA error)")
+    tiles = -(-t // TILE_ROWS)
+    total = min(resident, n * nh * tiles)
+    itemsize = 4 if code == 0 else 2
+    floor = min(-(-2 * t * nh * dh * itemsize // FWD_SHARE_BYTES),
+                total // (2 * n))
+    # a block folds one query tile of a head at a time (f32), or two
+    items = nh * (tiles if code == 0 else -(-tiles // 2))
+    counts = split_blocks(n, total, causal, floor, items)
+    offs = torch.tensor([0, *itertools.accumulate(counts)],
+                        dtype=torch.int32, device=torch.device("cuda", dev))
+    return counts, offs
 
 
 def ring_attention_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -260,24 +373,28 @@ def ring_attention_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dev = q.device.index or 0
     code = _DTYPE_CODES[q.dtype]
-    blocks = _blocks(n, t, nh, dh, code, dev)
+    counts, offs = _plan(n, t, nh, dh, code, bool(causal), dev)
+    total = sum(counts)
     out = torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=q.device)
     if n > 1:
+        tiles = nh * -(-t // TILE_ROWS)
         slots = q.new_empty((n, 2, 2 * t, nh, dh))
-        acc_o = torch.empty((n, nh, t, dh), **f32)
-        acc_ml = torch.empty((n, 2, nh, t), **f32)
+        # per (rank, tile): the f32 output rows, then 4 floats of running
+        # max and denominator for each of the tile's 128 threads
+        acc_o = torch.empty(n * tiles * TILE_ROWS * padded_head_dim(dh),
+                            **f32)
+        acc_ml = torch.empty(n * tiles * 4 * 2 * TILE_ROWS, **f32)
     else:  # one step: no hop, no accumulator carried between steps
         slots = acc_o = acc_ml = torch.empty(0, **f32)
-    # (n, {recv, cap}, slot, blocks): one flag per receiving block
-    sems = torch.zeros(n * 2 * 2 * blocks, dtype=torch.int32,
-                       device=q.device)
+    # ({recv, cap}, slot, block): one flag per receiving block
+    sems = torch.zeros(2 * 2 * total, dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().ompi_ring_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         slots.data_ptr(), acc_o.data_ptr(), acc_ml.data_ptr(),
-        sems.data_ptr(), n, blocks, t, nh, dh, int(bool(causal)),
-        _scale(dh), code, dev, stream)
+        sems.data_ptr(), offs.data_ptr(), n, total, t, nh, dh,
+        int(bool(causal)), _scale(dh), code, dev, stream)
     if err:
         raise KernelError(f"ring_attention launch failed: CUDA error {err}")
     ATTN.launched(sems)

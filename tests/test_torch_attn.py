@@ -21,9 +21,20 @@ the CPU.
 - ``simulate_ring_attention`` (the kernel's plain version) exact against
   its own lock-step run, with every flag back at 0, under 200 seeded
   random interleavings at n in {3, 4, 8} with G in {1, 2} thread blocks
-  per rank; with one credit per slot (from block 0 alone, awaited as 1)
-  instead of one per receiving block counted to G, an interleaving
-  corrupts a block at n in {4, 8}.
+  per rank, and with the causal ring's uneven split (fewer blocks on the
+  ranks that fold less) at n in {3, 4, 8}; with one credit per slot
+  (from block 0 alone, awaited as 1) instead of one per receiving block
+  counted to G, an interleaving corrupts a block at n in {4, 8}, and
+  with arrivals awaited as the receiving rank's own block count instead
+  of the sending rank's, an uneven split ends with a fault or a
+  deadlock. Skipping the causal mask's hidden folds is exact: bitwise
+  the fold of every step. ``split_blocks``: the counts sum to the grid,
+  keep the floor and follow the fold work.
+- The kernel's split-P arithmetic, emulated on the CPU at the slice's
+  sequence (S = 4096 over 8 ranks, 2 heads of 128): p = p_hi + p_lo in
+  bfloat16 (float16), products and sums in float32, within one output
+  ulp of the float32 whole-block fold; p rounded once must fail that
+  limit.
 
 The kernels themselves, on a card, are tested in test_torch_kernels.py
 (which imports no JAX, so it runs where only PyTorch is installed).
@@ -275,3 +286,130 @@ def test_attention_credits_must_count_every_block(n):
         if residue and not torch.equal(out, want):
             return
     pytest.fail("a credit counted to 1 never corrupted a block")
+
+
+def test_split_blocks_follows_the_fold_work():
+    assert tpa.split_blocks(8, 132, False) == [17] * 4 + [16] * 4
+    for n, total, floor, items in ((8, 132, 8, 128), (8, 132, 8, 256),
+                                   (8, 132, 4, 0), (3, 6, 1, 0),
+                                   (4, 8, 1, 2), (8, 20, 1, 0),
+                                   (8, 8, 4, 0), (1, 5, 3, 4)):
+        counts = tpa.split_blocks(n, total, True, floor, items)
+        assert len(counts) == n and sum(counts) == total
+        assert min(counts) >= min(floor, total // n)
+        assert counts[-1] == max(counts)  # the last rank folds the most
+        if items:  # items per block never grow with the rank
+            per = [-(-items // g) for g in counts]
+            assert per == sorted(per, reverse=True)
+    # the slice's shape: 32 heads x 4 tile pairs per rank, floor 8
+    assert tpa.split_blocks(8, 132, True, 8, 128) == [10, 11, 13, 15, 16,
+                                                      19, 22, 26]
+    with pytest.raises(ArgumentError):
+        tpa.split_blocks(4, 3, True)
+
+
+UNEVEN = {3: [1, 2, 3], 4: [1, 1, 2, 4], 8: tpa.split_blocks(8, 20, True)}
+
+
+@pytest.mark.parametrize("n", [3, 4, 8])
+def test_attention_protocol_uneven_causal_split(n):
+    """The causal ring's split: each rank's blocks in proportion to its
+    fold work, so the arrival and credit counts differ from rank to
+    rank (an arrival wait counts the sender's blocks, a credit wait the
+    reader's)."""
+    q, k, v = to_torch(qkv((n, 4, 2, 8), n + 10))
+    want, residue = tpa.simulate_ring_attention(q, k, v, True)
+    assert not residue
+    for seed in range(200):
+        out, residue = tpa.simulate_ring_attention(
+            q, k, v, True, blocks=UNEVEN[n], rng=random.Random(seed))
+        assert not residue, (seed, residue)
+        assert torch.equal(out, want), seed
+
+
+@pytest.mark.parametrize("n", [3, 4, 8])
+def test_attention_arrivals_must_count_the_senders_blocks(n):
+    """Arrivals awaited as the receiver's own block count: where the
+    sender has more blocks the receiver reads a slot before every share
+    has landed, where it has fewer the receiver never wakes."""
+    q, k, v = to_torch(qkv((n, 4, 2, 8), n + 10))
+    want, _ = tpa.simulate_ring_attention(q, k, v, True)
+    for seed in range(200):
+        try:
+            out, residue = tpa.simulate_ring_attention(
+                q, k, v, True, blocks=UNEVEN[n], count="recv",
+                rng=random.Random(seed))
+        except RuntimeError:  # deadlock
+            return
+        if residue or not torch.equal(out, want):
+            return
+    pytest.fail("arrivals counted to the receiver's blocks were never caught")
+
+
+def test_causal_skip_is_exact():
+    """The simulator skips every fold of a block from a later rank, as
+    the kernel does: bitwise the fold of every step."""
+    n, t, nh, dh = 4, 8, 2, 16
+    q, k, v = to_torch(qkv((n, t, nh, dh), 21))
+    got, _ = tpa.simulate_ring_attention(q, k, v, True)
+    m = torch.full((n, nh, t), -1e30)
+    l = torch.zeros((n, nh, t))
+    o = torch.zeros((n, nh, t, dh))
+    for me in range(n):
+        for step in range(n):
+            src = (me - step) % n
+            for h in range(nh):
+                tpa._fold(q, k[src], v[src], me, src, h, True, tpa._scale(dh),
+                          m, l, o)
+    want = (o / l.clamp(min=1e-30)[..., None]).transpose(1, 2)
+    assert torch.equal(got, want)
+
+
+# (atol, rtol): one output ulp, the card tests' limit (ATTN_TOL).
+ULP = {torch.bfloat16: (1e-5, 2.0 ** -7), torch.float16: (1e-5, 2.0 ** -10)}
+
+
+def split_p_fold(q, k, v, dtype, split):
+    """The kernel's tensor-core fold of 64-key tiles over the gathered
+    causal sequence, emulated: scores and the online softmax in float32,
+    p as p_hi + p_lo in ``dtype`` (``split``) or p_hi alone, each
+    product exact in float32 and summed in float32."""
+    n, t, nh, dh = q.shape
+    s = n * t
+    qs, ks, vs = (x.reshape(s, nh, dh).float().transpose(0, 1)
+                  for x in (q, k, v))
+    pos = torch.arange(s)
+    m = torch.full((nh, s), -1e30)
+    l = torch.zeros((nh, s))
+    o = torch.zeros((nh, s, dh))
+    for k0 in range(0, s, 64):
+        keys = slice(k0, k0 + 64)
+        scores = (qs @ ks[:, keys].transpose(1, 2)) * tpa._scale(dh)
+        scores = torch.where(pos[:, None] >= pos[None, keys], scores,
+                             torch.tensor(-1e30))
+        m_new = torch.maximum(m, scores.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.to(dtype).float()
+        pv = hi @ vs[:, keys]
+        if split:
+            pv = pv + (p - hi).to(dtype).float() @ vs[:, keys]
+        o = o * corr[..., None] + pv
+        m = m_new
+    out = o / l.clamp(min=1e-30)[..., None]
+    return out.transpose(0, 1).reshape(n, t, nh, dh).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=str)
+def test_split_p_within_one_ulp_at_the_slice_sequence(dtype):
+    arrays = qkv((8, 512, 2, 128), 11)
+    q, k, v = to_torch(arrays, dtype)
+    want = tpa.ring_attention_block_plain(q, k, v, True).float()
+    atol, rtol = ULP[dtype]
+    limit = atol + rtol * want.abs()
+    split = split_p_fold(q, k, v, dtype, True).float()
+    assert float(((split - want).abs() / limit).max()) <= 1.0
+    single = split_p_fold(q, k, v, dtype, False).float()
+    assert float(((single - want).abs() / limit).max()) > 1.0

@@ -327,7 +327,8 @@ ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-5, 2.0 ** -7),
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(ATTN_TOL, key=str))
 @pytest.mark.parametrize("n,t,h,dh", [(4, 8, 2, 128), (3, 100, 3, 24),
-                                      (1, 70, 2, 64), (8, 64, 4, 256)])
+                                      (1, 70, 2, 64), (8, 64, 4, 256),
+                                      (8, 512, 2, 128)])
 def test_ring_attention_matches_plain_on_card(cuda, n, t, h, dh, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda).manual_seed(n * t)
