@@ -29,7 +29,8 @@ Phases (any failure raises and exits non-zero):
    sum/max/min/prod (ring and chunked at n in {2, 3, 8}, recursive
    doubling at n in {2, 8}, the bidirectional ring at n in {2, 3, 8});
    reduce-scatter and tree reduce likewise at n in {2, 3, 8} (the trees
-   at roots 0 and n-1); allgather, tree bcast, alltoall, gather and
+   at roots 0 and n-1; the tree reduce also over four of its segments,
+   the last ragged); allgather, tree bcast, alltoall, gather and
    scatter for the three dtypes (gather, scatter and bcast at roots 0
    and n-1), and the three data movers for float64, float16 and int8
    at odd row widths (their element-sized copies); ``sched_table`` on
@@ -152,6 +153,12 @@ Phases (any failure raises and exits non-zero):
    holds the ring program at 1 MiB (beside ``ring_allreduce``, the same
    protocol hard-coded) and the reduce-scatter program at 1 GiB sent
    per rank; ``selfdma_chunked``'s is n = 1 at 1 GiB.
+   ``ring_allreduce``'s row also holds its host/device split from
+   ``torch.profiler`` (``device_ms``, ``call_host_ms``,
+   ``call_to_kernel_ms``, as ``ompi_tpu_torch/tools/ring_probe.py``
+   reads them), and ``tree_reduce``'s its block split
+   (``blocks_per_relative_rank``, ``segment_cols``), each also printed
+   on a line of its own.
    ``ppermute_shift``'s row is 8 MiB per rank (4 KiB in ``small_ms``),
    its library call ``torch.roll(x, 1, 0).contiguous()``.
    ``ring_attention``'s row is bfloat16 causal, its other three cases in
@@ -337,6 +344,8 @@ def kernel_vs_plain(pr, gen) -> None:
     seg_elems = MIB // 4
     sizes = (33, 1000, seg_elems - 1, seg_elems + 1)
     coll_sizes = (33, 1000, 70001)  # per block (RS) or per rank (others)
+    # the tree reduce also over four segments, the last ragged
+    tree_sizes = coll_sizes + (3 * pr.TREE_SEG_COLS + 5000,)
 
     def plain_kw(plain, key, fn):
         return {key: fn} if plain else {}
@@ -391,7 +400,8 @@ def kernel_vs_plain(pr, gen) -> None:
             roots = (0, n - 1) if name in rooted else (0,)
             for dtype in (torch.int32, torch.float32, torch.bfloat16):
                 for op in ("sum", "max", "min", "prod") if reduces else (None,):
-                    for elems in (sizes if name in MAIN_SIZES
+                    for elems in (sizes if name in MAIN_SIZES else
+                                  tree_sizes if name == "tree_reduce"
                                   else coll_sizes):
                         x = random_rank_major(shape_of(n, elems), dtype, gen)
                         for root in roots:
@@ -1679,6 +1689,18 @@ def measure(pr, gen, errs, launches) -> list:
                       f"{QUANT_ROUTE['quant_ring_ms']:.4f} ms, "
                       f"{QUANT_ROUTE['exact_route']} "
                       f"{QUANT_ROUTE['exact_route_ms']:.4f} ms")
+        if kernel == "ring_allreduce":
+            extra += ring_split(pr, gen, row)
+        if kernel == "tree_reduce":
+            sm = torch.cuda.get_device_properties(0).multi_processor_count
+            row["blocks_per_relative_rank"] = pr.tree_blocks(
+                N, pr.TREE_BLOCKS_PER_SM * sm,
+                -(-nbytes // 4 // pr.TREE_SEG_COLS))
+            row["segment_cols"] = pr.TREE_SEG_COLS
+            log(f"[tree] tree_reduce at {nbytes} B/rank: blocks per relative "
+                f"rank {row['blocks_per_relative_rank']} of "
+                f"{pr.TREE_THREADS} threads, segments of "
+                f"{pr.TREE_SEG_COLS} columns")
         if kernel == "sched_table":
             row["program"] = "segmented_ring(8, 2)"
             row["also"] = []
@@ -1704,6 +1726,33 @@ def measure(pr, gen, errs, launches) -> list:
             f"{lib}){extra}")
         torch.cuda.empty_cache()
     return rows
+
+
+def ring_split(pr, gen, row) -> str:
+    """The ring's host/device split at its main-path size, from
+    ``torch.profiler`` as ``tools/ring_probe.py`` reads it: the kernel's
+    device time, the host time of one call and the gap from a call's
+    start to the kernel's start, each a p50 over 20 calls (the card idle
+    before each). Adds them to ``row``; returns the log text."""
+    import torch
+    from ompi_tpu_torch.tools.ring_probe import profile
+
+    x = random_rank_major((N, MAIN_SIZES["ring_allreduce"] // 4),
+                          torch.float32, gen)
+    inp, _, _ = pr._split_ring(x)
+    split = profile(lambda: pr.ring_allreduce(inp, "sum"))
+    if "kernel device" not in split:
+        raise AssertionError(f"ring_allreduce: the profiler saw no device "
+                             f"time ({split})")
+    row["device_ms"] = split["kernel device"]
+    row["call_host_ms"] = split["call host"]
+    row["call_to_kernel_ms"] = split["call start to kernel start"]
+    log(f"[time] ring_allreduce host/device split (torch.profiler, p50 of "
+        f"20 calls): kernel {row['device_ms']:.5f} ms on the card, call "
+        f"{row['call_host_ms']:.5f} ms on the host, call start to kernel "
+        f"start {row['call_to_kernel_ms']:.5f} ms")
+    return (f"; kernel {row['device_ms']:.5f} ms on the card, call start to "
+            f"kernel start {row['call_to_kernel_ms']:.5f} ms")
 
 
 def attn_flops(causal: bool) -> float:

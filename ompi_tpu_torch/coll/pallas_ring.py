@@ -6,7 +6,10 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
 (``csrc/``), with a wrapper, a plain version and a launch counter:
 
 - ``ring_allreduce`` (``_allreduce_kernel``): the whole-payload ring,
-  2(n-1) steps over a two-slot comm buffer with credits.
+  2(n-1) steps over a two-slot comm buffer with credits, one pass per
+  step: each arrival is folded (or, in the allgather half, stored) and
+  forwarded straight into the right neighbour's next slot
+  (``simulate_ring_fused``).
 - ``ring_allreduce_rd`` (``_allreduce_rd_kernel``): recursive doubling,
   log2 n rounds with one slot and one flag per round, rank-ordered
   combine.
@@ -20,7 +23,8 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
   ring, n-1 steps each; one after the other they are the
   ``pallas_rsag`` allreduce, bitwise equal to ``ring_allreduce``.
 - ``tree_reduce`` (``_tree_reduce_kernel``): binomial reduce to a root,
-  one comm slot per sender.
+  as a segmented "get" tree: a parent reads each child's finished row
+  segment by segment after that segment's flag, with no comm slot.
 - ``tree_bcast`` (``_tree_bcast_kernel``): binomial broadcast from a
   root, with the receiver's "ready" handshake before each store.
 - ``ring_allreduce_bidir`` (``_allreduce_bidir_kernel``): the ring in
@@ -75,6 +79,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import random
 from typing import Optional
 
@@ -120,6 +125,14 @@ LANES = 128
 STRIPE_COLS = 4096
 #: Flags per (rank, stripe) of the ring kernels: recv[2], cap[2], seg.
 RING_NSEM = 5
+#: Bytes of a ring block that one thread block of ``ring_allreduce``
+#: takes at least (``_ring_plan``).
+RING_STRIPE_BYTES = 8192
+#: Columns of a tree-reduce segment: a child publishes its row segment
+#: by segment, so its parent folds segment i while it works on later ones.
+TREE_SEG_COLS = 1 << 14
+#: Threads of a tree-reduce block, and its blocks per SM (csrc/tree_reduce.cu).
+TREE_THREADS, TREE_BLOCKS_PER_SM = 512, 2
 
 RING = KernelCounter("ring_allreduce")
 RD = KernelCounter("ring_allreduce_rd")
@@ -291,6 +304,62 @@ def simulate_ring(x: torch.Tensor, op: Optional[Op],
     _drive(_ring_programs(x, out, op, seg, sems, segmented=segmented,
                           credit=credit, phase=phase, direction=1),
            sems, rng)
+    return out, _residue(sems)
+
+
+def simulate_ring_fused(blocks: torch.Tensor, op: Op, *,
+                        credit: str = "after_read",
+                        rng: Optional[random.Random] = None):
+    """Run ``ring_allreduce``'s fold-then-forward ring on (n, n, C)
+    blocks. Rank me takes 2(n-1) arrivals from its left neighbour; arrival
+    k lands in its slot k % 2, except arrival 0, the left neighbour's
+    block me-2, which it reads straight from that neighbour's input. For
+    each arrival it waits for the slot's flag (and, before its third and
+    later sends, for the right neighbour's credit on the slot it sends
+    into), then makes one pass: at a reduce-scatter step (k < n-1) it
+    folds ``combine(arrival, x[me][me-k-2])``, the JAX package's operands
+    in its order, writing out[me][me] at the last one; at an allgather
+    step it stores the arrival to out[me][me-(k-n+1)-1]. The pass stores
+    its result straight into the right neighbour's slot (k + 1) % 2
+    (every step but the last) and signals it; then it credits its own
+    slot back to the left neighbour (arrivals 1 .. 2n-5, whose slots the
+    left fills again). ``credit`` "before_read" credits the slot before
+    the pass that reads it: the negative control. Returns (out, residue)
+    as ``simulate_ring`` does."""
+    if credit not in ("after_read", "before_read"):
+        raise ArgumentError(f"unknown credit placement {credit!r}")
+    n, C = _ring_blocks(blocks, True)
+    nsteps = 2 * (n - 1)
+    out = torch.zeros_like(blocks)
+    comm = blocks.new_zeros((n, 2, C))
+    sems: dict = collections.defaultdict(int)
+
+    def rank(me):
+        left, right = (me - 1) % n, (me + 1) % n
+        for k in range(nsteps):
+            send, credit_slot = k < nsteps - 1, 1 <= k <= nsteps - 3
+            if k:
+                yield (me, "recv", k % 2), 1
+            if send and k >= 2:
+                yield (me, "cap", (k + 1) % 2), 1
+            if credit == "before_read" and credit_slot:
+                sems[left, "cap", k % 2] += 1
+                yield _PAUSE
+            arrival = blocks[left, (me - 2) % n] if k == 0 else comm[me, k % 2]
+            if k < n - 1:
+                val = op.combine(arrival, blocks[me, (me - k - 2) % n])
+                if k == n - 2:
+                    out[me, me] = val
+            else:
+                val = arrival.clone()
+                out[me, (me - (k - n + 1) - 1) % n] = val
+            if send:
+                comm[right, (k + 1) % 2] = val
+                sems[right, "recv", (k + 1) % 2] += 1
+            if credit == "after_read" and credit_slot:
+                sems[left, "cap", k % 2] += 1
+
+    _drive([rank(r) for r in range(n)], sems, rng)
     return out, _residue(sems)
 
 
@@ -487,34 +556,111 @@ def simulate_rd(flat: torch.Tensor, op: Op, *,
     return out, _residue(sems)
 
 
-def simulate_tree_reduce(flat: torch.Tensor, op: Op, root: int = 0, *,
-                         rng: Optional[random.Random] = None):
-    """Run the binomial reduce-to-root schedule on ``flat`` (n, L). With
-    rel = (me - root) mod n, in round k a rank whose rel has lowest set
-    bit 2^k puts its accumulator in its own comm slot (rel - 1) and
-    leaves; its parent rel - 2^k waits for that slot's flag and folds
-    ``combine(acc, arrival)``. Row ``root`` of out is the reduction, the
-    other rows partial accumulators. Returns (out, residue)."""
+def tree_children(rel: int, n: int) -> list[int]:
+    """Relative ranks whose accumulators relative rank ``rel`` folds, in
+    the reference's round order: rel + 2^k for every round k below
+    rel's lowest set bit (every round, for the root) with rel + 2^k < n.
+    In round k a rank whose lowest set bit is 2^k sends to rel - 2^k."""
+    low = rel & -rel if rel else n
+    children, bit = [], 1
+    while bit < low and rel + bit < n:
+        children.append(rel + bit)
+        bit <<= 1
+    return children
+
+
+def tree_blocks(n: int, total: int, most: Optional[int] = None) -> list[int]:
+    """Thread blocks per relative rank of the tree reduce's grid of
+    ``total`` blocks (at least n). Relative rank rel reads its input and
+    each child's row and writes its own row once: (2 + children) rows of
+    bytes, its weight (5, 2, 3, 2, 4, 2, 3, 2 at n = 8). Every rank gets
+    one block; each further block goes to the rank with the most weight
+    per block, so all ranks stream their rows at about the same pace.
+    ``most`` caps a rank's blocks (its number of segments: a block
+    beyond it would have nothing to do), and the grid then stays
+    smaller than ``total``."""
+    if n < 1 or total < n:
+        raise ArgumentError(f"need at least one block per rank: {total} "
+                            f"blocks for {n} ranks")
+    weight = [2 + len(tree_children(rel, n)) for rel in range(n)]
+    counts = [1] * n
+    cap = total if most is None else max(1, most)
+    for _ in range(total - n):
+        open_ = [r for r in range(n) if counts[r] < cap]
+        if not open_:
+            break
+        best = max(open_, key=lambda r: (weight[r] / counts[r], -r))
+        counts[best] += 1
+    return counts
+
+
+def _tree_programs(flat: torch.Tensor, out: torch.Tensor, op: Op, root: int,
+                   seg: int, blocks: list[int], sems: dict,
+                   fold: str) -> list:
+    """The programs of the segmented get tree, one per (relative rank,
+    thread block): block j of relative rank rel's g blocks takes the
+    segments j, j + g, ...; for each it waits for every child's flag of
+    that segment, writes ``out[me] = fold(x[me], child rows...)`` in one
+    pass, and raises its own flag for its parent (relative rank rel - 1's
+    flag of segment s, keyed (rel, s)). ``fold`` "before_flag" folds the
+    children's rows first and waits for their flags after it: the
+    negative control."""
     n, L = flat.shape
-    out = flat.clone()
-    comm = flat.new_empty((max(n - 1, 1), L))
+    n_segs = -(-L // seg)
+
+    def block(rel, j, g):
+        me = (rel + root) % n
+        kids = tree_children(rel, n)
+        for s in range(j, n_segs, g):
+            cols = slice(s * seg, min(L, (s + 1) * seg))
+            if fold == "after_flag":
+                for c in kids:
+                    yield ("ready", c, s), 1
+            acc = flat[me, cols]
+            for c in kids:
+                acc = op.combine(acc, out[(c + root) % n, cols])
+            out[me, cols] = acc
+            if fold == "before_flag":
+                for c in kids:
+                    yield ("ready", c, s), 1
+            if rel:
+                sems["ready", rel, s] += 1
+            yield _PAUSE
+
+    return [block(rel, j, blocks[rel]) for rel in range(n)
+            for j in range(blocks[rel])]
+
+
+def simulate_tree_reduce(flat: torch.Tensor, op: Op, root: int = 0, *,
+                         seg_cols: Optional[int] = None,
+                         blocks: Optional[list[int]] = None,
+                         fold: str = "after_flag",
+                         rng: Optional[random.Random] = None):
+    """Run the segmented "get" binomial reduce-to-root on ``flat`` (n,
+    L). With rel = (me - root) mod n, rank me's row of out is
+    ``combine(...combine(x[me], acc(child_1))..., acc(child_k))``, its
+    children (``tree_children``) in ascending round order, the
+    accumulator on the left: the JAX package's fold. A child's
+    accumulator is its finished row of out, which the parent reads
+    segment by segment of ``seg_cols`` columns (default
+    ``TREE_SEG_COLS``) after that segment's flag; the child never writes
+    it again, so no comm slot is needed. ``blocks`` gives the thread
+    blocks per relative rank (one each by default). Row ``root`` of out
+    is the reduction, the others partial accumulators, as in the
+    reference. Returns (out, residue)."""
+    if fold not in ("after_flag", "before_flag"):
+        raise ArgumentError(f"unknown fold placement {fold!r}")
+    n, L = flat.shape
+    seg = TREE_SEG_COLS if seg_cols is None else seg_cols
+    if seg <= 0:
+        raise ArgumentError(f"bad segment {seg}")
+    blocks = [1] * n if blocks is None else blocks
+    if len(blocks) != n or min(blocks) < 1:
+        raise ArgumentError(f"need one or more blocks per rank, got {blocks}")
+    out = torch.zeros_like(flat)  # rows not yet written read as 0
     sems: dict = collections.defaultdict(int)
-
-    def rank(me):
-        rel = (me - root) % n
-        bit = 1
-        while bit < n:
-            low = rel & (2 * bit - 1)
-            if low == bit:
-                comm[rel - 1] = out[me]
-                sems["recv", rel - 1] += 1
-                return
-            if low == 0 and rel + bit < n:
-                yield ("recv", rel + bit - 1), 1
-                out[me] = op.combine(out[me], comm[rel + bit - 1])
-            bit <<= 1
-
-    _drive([rank(r) for r in range(n)], sems, rng)
+    _drive(_tree_programs(flat, out, op, root, seg, blocks, sems, fold),
+           sems, rng)
     return out, _residue(sems)
 
 
@@ -557,7 +703,7 @@ def _checked(result):
 
 
 def ring_allreduce_plain(blocks: torch.Tensor, op) -> torch.Tensor:
-    return _checked(simulate_ring(blocks, op_lookup(op)))
+    return _checked(simulate_ring_fused(blocks, op_lookup(op)))
 
 
 def ring_allreduce_chunked_plain(blocks: torch.Tensor, op,
@@ -620,8 +766,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _ARGTYPES = {
+    # x, out, comm, sems, n, stripes, threads, C, op, dtype, dev, stream
+    "ring_allreduce": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, W, seg, n_segs, op, dtype, dev, stream
-    "ring_allreduce": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _P],
     "ring_allreduce_chunked":
         [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, L, rounds, op, dtype, dev, stream
@@ -630,8 +777,10 @@ _ARGTYPES = {
     "ring_reduce_scatter": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, W, dtype, dev, stream
     "ring_allgather": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
-    # x, out, comm, sems, n, stripes, L, root, op, dtype, dev, stream
-    "tree_reduce": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],
+    # x, out, sems, blocks per relative rank, n, threads, L, seg, n_segs,
+    # root, op, dtype, dev, stream
+    "tree_reduce": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _I,
+                    _P],
     # x, out, comm, sems, n, stripes, L, root, dtype, dev, stream
     "tree_bcast": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, W, half, op, dtype, dev, stream
@@ -655,9 +804,11 @@ _ARGTYPES = {
 }
 
 
-def _entry(name: str):
-    """The C launch function of csrc/<name>.cu (built on first use)."""
-    fn = getattr(build.library(name), f"ompi_{name}")
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, defines: tuple = ()):
+    """The C launch function of csrc/<name>.cu (built on first use, with
+    ``defines`` for a probe build)."""
+    fn = getattr(build.library(name, defines), f"ompi_{name}")
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -681,13 +832,15 @@ def _check_root(root: int, n: int) -> None:
         raise ArgumentError(f"root {root} out of range for {n} ranks")
 
 
-def _stripes(n: int, cols: int, sm_count: int) -> int:
-    """Thread blocks per rank: the whole grid (n x stripes) must be
+def _stripes(n: int, cols: int, sm_count: int,
+             per: int = STRIPE_COLS) -> int:
+    """Thread blocks per rank, each taking at least ``per`` of the
+    ``cols`` columns (or bytes): the whole grid (n x stripes) must be
     resident at once, so n * stripes <= the SM count."""
     if n > sm_count:
         raise KernelError(f"{n} ranks need {n} resident blocks; the card "
                           f"has {sm_count} SMs")
-    return max(1, min(sm_count // n, -(-cols // STRIPE_COLS)))
+    return max(1, min(sm_count // n, -(-cols // per)))
 
 
 def _launch(name: str, counter: KernelCounter, x: torch.Tensor,
@@ -733,8 +886,75 @@ def ring_allreduce(blocks: torch.Tensor, op) -> torch.Tensor:
     n, C = _ring_blocks(blocks, True)
     if not blocks.is_cuda:
         return ring_allreduce_plain(blocks, op)
-    return _launch("ring_allreduce", RING, blocks, blocks.shape, C, 2 * n,
-                   RING_NSEM, (C, C, 1), _codes(op, blocks.dtype))
+    return _ring_launch(blocks, op)
+
+
+def _ring_plan(n: int, block_bytes: int, sm_count: int) -> tuple[int, int]:
+    """(stripes, threads per block) of ``ring_allreduce`` for n ranks of
+    ``block_bytes``-byte ring blocks: stripes of at least
+    ``RING_STRIPE_BYTES``, as many as fit one block per SM, each block
+    512 threads. The rule of a stripes x threads sweep at n = 8 on an
+    NVIDIA H100 (PERF.md, the ring's sweep): at 64 KiB per rank one stripe, at 1 MiB
+    and 4 MiB sixteen; 512 threads within a few percent of the best
+    everywhere."""
+    return _stripes(n, block_bytes, sm_count, RING_STRIPE_BYTES), 512
+
+
+#: (device index, stream handle, "flags" or "comm") -> scratch that the
+#: ring and tree kernels' launches on that stream reuse: every launch
+#: leaves its flags at 0 and writes each comm slot before reading it,
+#: and launches on one stream run one after another.
+_SCRATCH: dict = {}
+
+
+def _scratch(x: torch.Tensor, stream: int, kind: str,
+             count: int) -> torch.Tensor:
+    """At least ``count`` int32 flags, all 0 (``kind`` "flags"), or
+    ``count`` bytes of comm slots ("comm"), for a launch on ``stream``."""
+    key = (x.device.index, stream, kind)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < count:
+        if kind == "flags":
+            buf = torch.zeros(count, dtype=torch.int32, device=x.device)
+        else:
+            buf = torch.empty(count, dtype=torch.uint8, device=x.device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+def _raw_stream(x: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on x's card: torch's own
+    accessor, the one its generated kernel launchers call (a Stream
+    object from ``torch.cuda.current_stream`` costs several µs more)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index or 0)
+
+
+def _ring_launch(blocks: torch.Tensor, op, stripes: Optional[int] = None,
+                 threads: Optional[int] = None,
+                 defines: tuple = ()) -> torch.Tensor:
+    """Launch csrc/ring_allreduce.cu on (n, n, C) CUDA blocks with the
+    plan's stripes and threads (or the ones given: the measurement
+    tools' sweep; ``defines`` names a probe build)."""
+    n, C = _ring_blocks(blocks, True)
+    codes = _codes(op_lookup(op), blocks.dtype)
+    cap = require_kernel_device(blocks)
+    vec = 16 // blocks.element_size()
+    cols = -(-C // vec) * vec  # rows of whole 16-byte vectors
+    x = _aligned(blocks, cols)
+    plan = _ring_plan(n, cols * blocks.element_size(), cap.sm_count)
+    stripes, threads = stripes or plan[0], threads or plan[1]
+    slot_bytes = -(-cols // vec // stripes) * 16
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    comm = _scratch(x, stream, "comm", n * stripes * 2 * slot_bytes)
+    sems = _scratch(x, stream, "flags", n * stripes * 4)
+    err = _entry("ring_allreduce", defines)(
+        x.data_ptr(), out.data_ptr(), comm.data_ptr(), sems.data_ptr(), n,
+        stripes, threads, cols, *codes, x.device.index or 0, stream)
+    if err:
+        raise KernelError(f"ring_allreduce launch failed: CUDA error {err}")
+    RING.launched(sems)
+    return out[..., :C].contiguous() if cols != C else out
 
 
 def ring_allreduce_chunked(blocks: torch.Tensor, op, seg_cols: int
@@ -828,6 +1048,21 @@ def ring_allgather(flat: torch.Tensor) -> torch.Tensor:
                    RING_NSEM, (C,), _dtype_code(flat.dtype))
 
 
+@functools.lru_cache(maxsize=64)
+def _tree_grid(n: int, total: int, n_segs: int):
+    """(per-relative-rank block counts as a C int array, grid size)."""
+    counts = tree_blocks(n, total, n_segs)
+    return (ctypes.c_int * n)(*counts), sum(counts)
+
+
+def _aligned(x: torch.Tensor, cols: int) -> torch.Tensor:
+    """x contiguous, its rows zero-padded to ``cols`` columns and its
+    start 16-byte aligned, as the vector kernels read it."""
+    pad = cols - x.shape[-1]
+    x = F.pad(x, (0, pad)) if pad else x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def tree_reduce(flat: torch.Tensor, op, root: int = 0) -> torch.Tensor:
     """(n, L) per-rank buffers -> (n, L) whose row ``root`` is their
     binomial-tree reduction (the other rows: partial accumulators)."""
@@ -836,8 +1071,39 @@ def tree_reduce(flat: torch.Tensor, op, root: int = 0) -> torch.Tensor:
     _check_root(root, n)
     if not flat.is_cuda:
         return tree_reduce_plain(flat, op, root)
-    return _launch("tree_reduce", TREE_REDUCE, flat, flat.shape, L, n - 1, 1,
-                   (L, root), _codes(op, flat.dtype))
+    return _tree_launch(flat, op, root)
+
+
+def _tree_launch(flat: torch.Tensor, op, root: int,
+                 seg_cols: int = TREE_SEG_COLS,
+                 blocks: Optional[list[int]] = None,
+                 threads: int = TREE_THREADS, per_sm: int = TREE_BLOCKS_PER_SM,
+                 defines: tuple = ()) -> torch.Tensor:
+    """Launch csrc/tree_reduce.cu on (n, L) CUDA rows: ``per_sm`` blocks
+    of ``threads`` per SM, split by ``tree_blocks`` (or by the ``blocks``
+    per relative rank given; other segments, threads and blocks per SM
+    are the measurement tools' sweep; ``defines`` names a probe build)."""
+    n, L = flat.shape
+    codes = _codes(op_lookup(op), flat.dtype)
+    cap = require_kernel_device(flat)
+    cols = -(-L // LANES) * LANES  # rows of whole 16-byte vectors
+    x = _aligned(flat, cols)
+    n_segs = -(-cols // seg_cols)
+    if blocks is None:
+        counts, grid = _tree_grid(n, per_sm * cap.sm_count, n_segs)
+    else:
+        counts, grid = (ctypes.c_int * n)(*blocks), sum(blocks)
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    sems = _scratch(x, stream, "flags", max(n - 1, 1) * n_segs)
+    err = _entry("tree_reduce", defines)(
+        x.data_ptr(), out.data_ptr(), sems.data_ptr(), counts, n, threads,
+        cols, seg_cols, n_segs, root, *codes, x.device.index or 0, stream)
+    if err:
+        raise KernelError(f"tree_reduce launch failed: CUDA error {err} "
+                          f"(grid {grid})")
+    TREE_REDUCE.launched(sems)
+    return out[:, :L].contiguous() if cols != L else out
 
 
 def tree_bcast(flat: torch.Tensor, root: int = 0) -> torch.Tensor:

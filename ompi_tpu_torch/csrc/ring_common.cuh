@@ -124,6 +124,31 @@ __device__ __forceinline__ unsigned long long global_ns() {
 // loudly (the next synchronize raises) instead of hanging the card.
 constexpr unsigned long long kDeadlockNs = 30ull * 1000 * 1000 * 1000;
 
+// Probe builds (-DOMPI_RING_PROBE, the measurement tools only): thread
+// 0 of block b writes v into probe_stamps[b * kProbeSlots + i] at
+// OMPI_PROBE_AT(i, v), and %globaltimer at OMPI_PROBE(i);
+// ompi_probe_set names the buffer (null: off). Other builds compile
+// both to nothing.
+constexpr int kProbeSlots = 64;
+#ifdef OMPI_RING_PROBE
+__device__ unsigned long long* probe_stamps;
+#define OMPI_PROBE_AT(i, v)                                             \
+  do {                                                                  \
+    if (threadIdx.x == 0 && ompi_ring::probe_stamps && (i) < kProbeSlots) \
+      ompi_ring::probe_stamps[(long long)blockIdx.x * kProbeSlots + (i)] = \
+          (v);                                                          \
+  } while (0)
+#define OMPI_PROBE(i) OMPI_PROBE_AT(i, ompi_ring::global_ns())
+extern "C" int ompi_probe_set(void* stamps) {
+  return (int)cudaMemcpyToSymbol(probe_stamps, &stamps, sizeof(stamps));
+}
+#else
+#define OMPI_PROBE_AT(i, v) \
+  do {                      \
+  } while (0)
+#define OMPI_PROBE(i) OMPI_PROBE_AT(i, 0)
+#endif
+
 // Whole block: wait until the flag reaches v, consume v.
 __device__ __forceinline__ void wait(int* flag, int v) {
   if (threadIdx.x == 0) {
@@ -137,6 +162,81 @@ __device__ __forceinline__ void wait(int* flag, int v) {
     __threadfence();
   }
   __syncthreads();
+}
+
+// ---- block handovers with one fence (the redesigned kernels) ---------------
+//
+// publish()/wait() above fence on every thread and sleep between polls.
+// These hand over with one cumulative fence on one thread, the pattern of
+// cooperative groups' grid sync: a block barrier orders every thread's
+// stores before thread 0's gpu-scope release fence, and the flag that
+// thread 0 then raises carries them all to the acquirer.
+
+// Whole block: the block's stores so far become visible device-wide
+// before any flag thread 0 raises next (raise_flag).
+__device__ __forceinline__ void block_publish() {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    cuda::atomic_thread_fence(cuda::memory_order_release,
+                              cuda::thread_scope_device);
+}
+
+// Thread 0 only, after block_publish(): add v to a flag.
+__device__ __forceinline__ void raise_flag(int* flag, int v = 1) {
+  Flag(*flag).fetch_add(v, cuda::memory_order_relaxed);
+}
+
+// Polls of a flag before the waiter starts to sleep between polls.
+constexpr int kHotPolls = 256;
+
+// Thread 0 only: spin with acquire loads until the flag reaches v, then
+// take v off it. The first kHotPolls polls do not sleep; a wait longer
+// than kDeadlockNs traps.
+__device__ __forceinline__ void acquire_flag(int* flag, int v = 1) {
+  Flag f(*flag);
+  int polls = 0;
+  unsigned long long t0 = 0;
+  while (f.load(cuda::memory_order_acquire) < v) {
+    if (++polls <= kHotPolls) continue;
+    if (t0 == 0) t0 = global_ns();
+    __nanosleep(32);
+    if (global_ns() - t0 > kDeadlockNs) __trap();
+  }
+  f.fetch_sub(v, cuda::memory_order_relaxed);
+}
+
+// ---- 16-byte vectors -------------------------------------------------------
+
+// One 32-bit word of a vector: its elements combined pairwise.
+template <typename T, int OP> struct WordCombine;
+template <int OP> struct WordCombine<float, OP> {
+  __device__ __forceinline__ static unsigned apply(unsigned a, unsigned b) {
+    return __float_as_uint(combine_f32<OP>(__uint_as_float(a),
+                                           __uint_as_float(b)));
+  }
+};
+template <int OP> struct WordCombine<int, OP> {
+  __device__ __forceinline__ static unsigned apply(unsigned a, unsigned b) {
+    return (unsigned)combine_i32<OP>((int)a, (int)b);
+  }
+};
+template <int OP> struct WordCombine<__nv_bfloat16, OP> {
+  __device__ __forceinline__ static unsigned half(unsigned a, unsigned b) {
+    return __bfloat16_as_ushort(Combine<__nv_bfloat16, OP>::apply(
+        __ushort_as_bfloat16((unsigned short)a),
+        __ushort_as_bfloat16((unsigned short)b)));
+  }
+  __device__ __forceinline__ static unsigned apply(unsigned a, unsigned b) {
+    return half(a & 0xffffu, b & 0xffffu) | (half(a >> 16, b >> 16) << 16);
+  }
+};
+
+// Elementwise combine(a, b) of two 16-byte vectors of T.
+template <typename T, int OP>
+__device__ __forceinline__ uint4 combine_vec(uint4 a, uint4 b) {
+  using W = WordCombine<T, OP>;
+  return make_uint4(W::apply(a.x, b.x), W::apply(a.y, b.y),
+                    W::apply(a.z, b.z), W::apply(a.w, b.w));
 }
 
 // ---- the ring schedule -----------------------------------------------------
@@ -317,18 +417,24 @@ __device__ __forceinline__ ByteStripe byte_stripe(long long row, int s,
   return {c0, c0 < row ? (row - c0 < sw ? row - c0 : sw) : 0};
 }
 
-// Cooperative launch of `blocks` blocks of kThreads on `stream`: every
+// Cooperative launch of `blocks` blocks of `threads` on `stream`: every
 // block resident, or the launch fails. Returns the CUDA error (0 on
 // success); a null kernel (unknown op or dtype code) is an invalid value.
-inline int launch_cooperative(const void* fn, int blocks, void** args,
-                              int device, void* stream) {
+inline int launch_cooperative(const void* fn, int blocks, int threads,
+                              void** args, int device, void* stream) {
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
+  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args,
                                     0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The same, with blocks of kThreads.
+inline int launch_cooperative(const void* fn, int blocks, void** args,
+                              int device, void* stream) {
+  return launch_cooperative(fn, blocks, kThreads, args, device, stream);
 }
 
 }  // namespace ompi_ring

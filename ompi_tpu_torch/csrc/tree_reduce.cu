@@ -1,85 +1,196 @@
-// tree_reduce: the binomial-tree reduce to a root on Hopper.
+// tree_reduce: the binomial-tree reduce to a root on Hopper, as a
+// segmented, rate-balanced "get" tree.
 //
 // Replaces ompi_tpu/coll/pallas_ring.py:_tree_reduce_kernel (wrapper
 // tree_reduce, used by PallasColl.reduce through reduce_block). Ranks
 // are numbered relative to the root, rel = (r - root) mod n. In round k
-// (k < ceil(log2 n)) a rank whose rel has lowest set bit 2^k sends its
-// accumulator to rel - 2^k and leaves; a rank whose low k+1 bits are 0
-// and with rel + 2^k < n waits for that child's accumulator and folds
-// out = combine(out, arrival), the accumulator on the left, as the
-// reference does. The root ends with the full reduction; the other rows
-// of out hold partial accumulators, as in the reference.
+// a rank whose rel has lowest set bit 2^k sends its accumulator to
+// rel - 2^k and leaves; its parent folds combine(acc, arrival), the
+// accumulator on the left, children in ascending round order. Row root
+// of out ends with the reduction, every other row with that rank's
+// partial accumulator, as in the reference.
 //
-// Each non-root rank sends exactly once, so the comm scratch is one slot
-// per sender, n - 1 in all (slot rel - 1), each with one flag, instead
-// of the reference's rounds x n VMEM slots: 7 GiB instead of 24 GiB at
-// 1 GiB per rank and n = 8. A slot is written once per launch, so it
-// needs no credit.
+// Bound: bytes. The function needs each input read once and the root's
+// row written once, (n + 1) * B for B bytes per rank; writing all n rows,
+// as the reference's contract does, makes the floor 2 n * B. The first
+// port striped each rank over equal blocks and sent a whole row per
+// round: the rounds ran one after another (a child signalled only after
+// its whole row), a child copied its row into a comm slot and the parent
+// folded it in a second pass, and most SMs sat idle after their round.
 //
-// Bound: bytes. Every rank's input is read once and the root's result
-// written once: (n + 1) * B bytes for B bytes per rank. What the design
-// does about it: each rank is striped over n x stripes <= SM count
-// resident thread blocks, each stripe with its own flags, and every pass
-// is a coalesced stream. The rounds are a dependency chain, so senders
-// sit idle after their round; under a cooperative launch that is safe.
+// What this design does about it:
+// - Segments: each row is cut into segments of `seg` columns (whole
+//   16-byte vectors). A rank's blocks take its segments round-robin and
+//   raise one flag per (sender, segment) as each is done, so a parent
+//   folds segment i while its children work on later ones: every round
+//   runs at once.
+// - Get: a parent reads a child's finished row of out straight from
+//   HBM (ld.cg, after the flag's acquire), so there is no comm scratch
+//   (7 GiB at 1 GiB per rank and n = 8). A child never writes its row
+//   again after raising a segment's flag.
+// - One pass: out[me] = fold(x[me], child_1, child_2, ...) in registers,
+//   16-byte vectors, one store: every input read once, every row written
+//   once, every non-root row read once by its parent (from L2 when the
+//   parent keeps pace).
+// - Blocks in proportion to bytes: relative rank rel moves (2 + its
+//   children) rows, and the host splits the grid by those weights
+//   (pallas_ring.tree_blocks), passed here as per-rank block counts.
+// - L2 policies keep the child rows not yet read in L2 (l2_policy).
+// The launch is cooperative (every block resident, so a spin cannot
+// starve the block it waits for), every flag ends at 0, and a wait of
+// 30 s traps. On an H100 (PERF.md, tree_check.py) it takes 7.6-8.8 ms at 1 GiB
+// per rank and n = 8 (the first port 56 ms), about 2 TB/s of the 2 n B
+// bytes, at every segment size from 8 Ki to 32 Ki columns and every
+// block shape tried; the parents wait for their children 30-50% of it.
 #include "ring_common.cuh"
 
 namespace ompi_ring {
 
-template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads)
-    tree_reduce_kernel(const T* __restrict__ x, T* __restrict__ out,
-                       T* comm, int* sems, int n, int stripes, long long L,
-                       int root) {
-  const int r = blockIdx.x / stripes;
-  const int s = blockIdx.x % stripes;
-  const long long sw = (L + stripes - 1) / stripes;
-  const long long c0 = (long long)s * sw;
-  const long long cw = c0 < L ? (L - c0 < sw ? L - c0 : sw) : 0;
-  const int rel = (r - root + n) % n;
-  const T* xr = x + (long long)r * L + c0;
-  T* o = out + (long long)r * L + c0;
-  // comm is (n - 1, stripes, sw) and sems (n - 1, stripes), both indexed
-  // by the sender's relative rank minus one.
-  auto slot = [&](int sender_rel) {
-    return comm + ((long long)(sender_rel - 1) * stripes + s) * sw;
-  };
-  auto flag = [&](int sender_rel) {
-    return sems + (sender_rel - 1) * stripes + s;
-  };
+constexpr int kTreeMaxRanks = 512;
+constexpr int kTreeUnroll = 4;
 
-  for (long long j = threadIdx.x; j < cw; j += blockDim.x) o[j] = xr[j];
-  for (int bit = 1; bit < n; bit <<= 1) {
-    const int low = rel & (2 * bit - 1);
-    if (low == bit) {
-      // Send the accumulator to the parent's slot for this rank; leave.
-      T* dst = slot(rel);
-      for (long long j = threadIdx.x; j < cw; j += blockDim.x)
-        st_cg(dst + j, o[j]);
-      publish();
-      if (threadIdx.x == 0) signal(flag(rel), 1);
-      return;
+// L2 cache policies for the rows other blocks read: a child stores its
+// row evict-last and its parent reads it evict-first, so rows not yet
+// read outlast rows already read (measured on the card: 2-4% at 1 GiB
+// per rank, PERF.md). Neither touches L1: another SM wrote the row.
+__device__ __forceinline__ unsigned long long l2_policy(bool last) {
+  unsigned long long p;
+  if (last)
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  else
+    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint4 ld_child(const uint4* p,
+                                          unsigned long long policy) {
+  uint4 v;
+  asm volatile(
+      "ld.global.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, "
+      "[%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy)
+      : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_child(uint4* p, uint4 v,
+                                         unsigned long long policy) {
+  asm volatile(
+      "st.global.L1::no_allocate.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, "
+      "%4}, %5;"
+      :
+      : "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(policy)
+      : "memory");
+}
+
+// Blocks [first[rel], first[rel + 1]) of the grid play relative rank rel.
+struct TreeSplit {
+  int first[kTreeMaxRanks + 1];
+};
+
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads, 1)
+    tree_reduce_kernel(const T* __restrict__ x, T* out, int* sems,
+                       const TreeSplit split, int n, long long L,
+                       long long seg, int n_segs, int root) {
+  int rel = 0;
+  while ((int)blockIdx.x >= split.first[rel + 1]) ++rel;
+  const int j = blockIdx.x - split.first[rel];
+  const int g = split.first[rel + 1] - split.first[rel];
+  const int me = (rel + root) % n;
+  // Children: rel + bit for every bit below rel's lowest set bit (every
+  // bit, for the root) while rel + bit < n, in ascending round order.
+  const int low = rel ? (rel & -rel) : n;
+  constexpr long long E = 16 / sizeof(T);  // elements per vector
+  const long long row_v = L / E, seg_v = seg / E;
+  const uint4* xr = reinterpret_cast<const uint4*>(x) + me * row_v;
+  uint4* o = reinterpret_cast<uint4*>(out) + me * row_v;
+  const uint4* rows = reinterpret_cast<const uint4*>(out);
+  const unsigned long long read_once = l2_policy(false);
+  const unsigned long long keep = l2_policy(true);
+#ifdef OMPI_RING_PROBE
+  unsigned long long waited = 0;  // probe: ns thread 0 spent waiting
+#endif
+  OMPI_PROBE(0);
+
+  for (int s = j; s < n_segs; s += g) {
+    const long long v0 = (long long)s * seg_v;
+    const long long vn = (v0 + seg_v < row_v ? v0 + seg_v : row_v) - v0;
+    if (threadIdx.x == 0) {
+#ifdef OMPI_RING_PROBE
+      const unsigned long long t = global_ns();
+#endif
+      for (int bit = 1; bit < low && rel + bit < n; bit <<= 1)
+        acquire_flag(sems + (long long)(rel + bit - 1) * n_segs + s);
+#ifdef OMPI_RING_PROBE
+      waited += global_ns() - t;
+#endif
     }
-    if (low == 0 && rel + bit < n) {
-      wait(flag(rel + bit), 1);
-      const T* src = slot(rel + bit);
-      for (long long j = threadIdx.x; j < cw; j += blockDim.x)
-        o[j] = Combine<T, OP>::apply(o[j], ld_cg(src + j));
+    __syncthreads();
+    for (long long i = threadIdx.x; i < vn;
+         i += (long long)kTreeUnroll * blockDim.x) {
+      uint4 acc[kTreeUnroll];
+#pragma unroll
+      for (int u = 0; u < kTreeUnroll; ++u) {
+        const long long k = i + (long long)u * blockDim.x;
+        if (k < vn) acc[u] = __ldcs(xr + v0 + k);  // read once
+      }
+      for (int bit = 1; bit < low && rel + bit < n; bit <<= 1) {
+        const uint4* c = rows + (long long)((rel + bit + root) % n) * row_v +
+                         v0;
+        uint4 b[kTreeUnroll];
+#pragma unroll
+        for (int u = 0; u < kTreeUnroll; ++u) {
+          const long long k = i + (long long)u * blockDim.x;
+          if (k < vn) b[u] = ld_child(c + k, read_once);
+        }
+#pragma unroll
+        for (int u = 0; u < kTreeUnroll; ++u) {
+          const long long k = i + (long long)u * blockDim.x;
+          if (k < vn) acc[u] = combine_vec<T, OP>(acc[u], b[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTreeUnroll; ++u) {
+        const long long k = i + (long long)u * blockDim.x;
+        if (k >= vn) continue;
+        if (rel)
+          st_child(o + v0 + k, acc[u], keep);  // the parent reads it
+        else
+          __stcs(o + v0 + k, acc[u]);  // the result: never read here
+      }
+    }
+    if (rel) {
+      block_publish();
+      if (threadIdx.x == 0)
+        raise_flag(sems + (long long)(rel - 1) * n_segs + s);
     }
   }
+  __syncthreads();
+  OMPI_PROBE(1);
+  OMPI_PROBE_AT(2, waited);
 }
 
 }  // namespace ompi_ring
 
-// x, out: (n, L) rank-major; comm: (n - 1, stripes, sw); sems: (n - 1,
-// stripes) int32, zeroed by the caller. Returns the CUDA error of the
-// launch (0 on success).
-extern "C" int ompi_tree_reduce(const void* x, void* out, void* comm,
-                                void* sems, int n, int stripes, long long L,
+// x, out: (n, L) rank-major, L a whole number of 16-byte vectors and
+// seg a multiple of the vector; sems: (n - 1, n_segs) int32, all 0 at
+// entry and left at 0; counts: blocks per relative rank (host memory),
+// at least one each, of `threads` threads (at most 1024; the grid must
+// be resident). Returns the CUDA error of the launch (0 on success).
+extern "C" int ompi_tree_reduce(const void* x, void* out, void* sems,
+                                const int* counts, int n, int threads,
+                                long long L, long long seg, int n_segs,
                                 int root, int op, int dtype, int device,
                                 void* stream) {
-  void* args[] = {(void*)&x, &out, &comm, &sems, &n, &stripes, &L, &root};
-  return ompi_ring::launch_cooperative(
-      OMPI_RING_PICK(ompi_ring::tree_reduce_kernel)(op, dtype),
-      n * stripes, args, device, stream);
+  using namespace ompi_ring;
+  if (n < 1 || n > kTreeMaxRanks || threads < 32 || threads > kThreads)
+    return (int)cudaErrorInvalidValue;
+  TreeSplit split;
+  split.first[0] = 0;
+  for (int r = 0; r < kTreeMaxRanks; ++r)
+    split.first[r + 1] = split.first[r] + (r < n ? counts[r] : 0);
+  void* args[] = {(void*)&x, &out, &sems, &split, &n,
+                  &L,        &seg, &n_segs, &root};
+  return launch_cooperative(OMPI_RING_PICK(tree_reduce_kernel)(op, dtype),
+                            split.first[n], threads, args, device, stream);
 }

@@ -136,6 +136,50 @@ def test_trees_match_plain_on_card(cuda, n, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(TDT))
 @pytest.mark.parametrize("n", [2, 3, 8])
+def test_redesigned_kernels_match_plain_at_several_segments(cuda, n, dtype):
+    """The fold-then-forward ring over several stripes, the last ragged,
+    and on blocks that are not whole 16-byte vectors; the segmented tree
+    over four segments, the last ragged: bitwise their plain versions."""
+    x = _input(n, n * (3 * pr.STRIPE_COLS + 1000) + 7, dtype, cuda)
+    blocks = _input(n, n * 1001, dtype, cuda).reshape(n, n, 1001)
+    y = _input(n, 3 * pr.TREE_SEG_COLS + 5000, dtype, cuda)
+    for op in OPS:
+        got = _launched_once(pr.RING, lambda: pr.allreduce_block(x, op))
+        want = pr.allreduce_block(x, op, ring=pr.ring_allreduce_plain)
+        assert torch.equal(_bits(got), _bits(want)), (n, dtype, op)
+        got = _launched_once(pr.RING, lambda: pr.ring_allreduce(blocks, op))
+        want = pr.ring_allreduce_plain(blocks, op)
+        assert torch.equal(_bits(got), _bits(want)), (n, dtype, op, 1001)
+        for root in (0, n - 1):
+            got = _launched_once(pr.TREE_REDUCE,
+                                 lambda: pr.reduce_block(y, op, root))
+            want = pr.reduce_block(y, op, root, tree=pr.tree_reduce_plain)
+            assert torch.equal(_bits(got), _bits(want)), (n, dtype, op, root)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["ring", "tree"])
+def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
+                                                                kernel):
+    """50 back-to-back launches at n = 8 give the same bits, every flag
+    back at 0: a race on a slot or a segment flag would show."""
+    if kernel == "ring":
+        x = _input(8, 8 * 8 * pr.STRIPE_COLS, "float32", cuda)
+        run, counter = (lambda: pr.allreduce_block(x, "sum")), pr.RING
+    else:
+        x = _input(8, 3 * pr.TREE_SEG_COLS + 5000, "float32", cuda)
+        run, counter = (lambda: pr.reduce_block(x, "sum", 3)), \
+            pr.TREE_REDUCE
+    first = _launched_once(counter, run)
+    outs = [run() for _ in range(50)]
+    torch.cuda.synchronize()
+    assert int(counter.last_sems.abs().sum()) == 0
+    assert all(torch.equal(o, first) for o in outs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("n", [2, 3, 8])
 def test_bidir_matches_plain_on_card(cuda, n, dtype):
     x = _input(n, 5000, dtype, cuda)  # ring blocks padded to 256 lanes
     for op in OPS:
