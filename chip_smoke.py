@@ -16,7 +16,14 @@ chunked identity), ``quant_allreduce`` (the ring over the int8 wire),
 ``ppermute_shift`` (one ring hop) and ``ring_attention`` (exact
 attention over the ring: bfloat16 and float16 products on the tensor
 cores, float32 on the CUDA cores, the causal mask's hidden folds
-skipped and the causal ring's thread blocks split by fold work).
+skipped and the causal ring's thread blocks split by fold work). The
+tree reduce and the tree bcast are segmented "get" trees (a rank reads
+its children's, or its parent's, finished row segment by segment after
+that segment's flag, every round at once); the whole-payload ring and
+the reduce-scatter fold and forward in one pass per step, the
+reduce-scatter in a wavefront over segments, one thread-block cluster
+per stripe up to 8 ranks with its buffers in the reading rank's shared
+memory (in L2 beyond).
 
 Phases (any failure raises and exits non-zero):
 
@@ -30,7 +37,11 @@ Phases (any failure raises and exits non-zero):
    doubling at n in {2, 8}, the bidirectional ring at n in {2, 3, 8});
    reduce-scatter and tree reduce likewise at n in {2, 3, 8} (the trees
    at roots 0 and n-1; the tree reduce also over four of its segments,
-   the last ragged); allgather, tree bcast, alltoall, gather and
+   the last ragged; the reduce-scatter also at blocks of fewer segments
+   than its n-1 steps and of many, ragged, and with one stripe over 41
+   segments at n in {3, 8, 12}, its buffers in a cluster's shared memory
+   and in L2); allgather, tree bcast (also over four
+   segments, the last ragged), alltoall, gather and
    scatter for the three dtypes (gather, scatter and bcast at roots 0
    and n-1), and the three data movers for float64, float16 and int8
    at odd row widths (their element-sized copies); ``sched_table`` on
@@ -344,8 +355,15 @@ def kernel_vs_plain(pr, gen) -> None:
     seg_elems = MIB // 4
     sizes = (33, 1000, seg_elems - 1, seg_elems + 1)
     coll_sizes = (33, 1000, 70001)  # per block (RS) or per rank (others)
-    # the tree reduce also over four segments, the last ragged
-    tree_sizes = coll_sizes + (3 * pr.TREE_SEG_COLS + 5000,)
+    # the trees also over four segments, the last ragged; the
+    # reduce-scatter also at fewer segments than steps and at many (the
+    # lane padding keeps the last segment ragged)
+    rs_seg = pr.RS_SEG_BYTES // 4
+    more_sizes = {
+        "tree_reduce": (3 * pr.TREE_SEG_COLS + 5000,),
+        "tree_bcast": (3 * pr.BCAST_SEG_BYTES // 4 + 5000,),
+        "ring_reduce_scatter": (3 * rs_seg - 300, 40 * rs_seg + 77),
+    }
 
     def plain_kw(plain, key, fn):
         return {key: fn} if plain else {}
@@ -401,8 +419,7 @@ def kernel_vs_plain(pr, gen) -> None:
             for dtype in (torch.int32, torch.float32, torch.bfloat16):
                 for op in ("sum", "max", "min", "prod") if reduces else (None,):
                     for elems in (sizes if name in MAIN_SIZES else
-                                  tree_sizes if name == "tree_reduce"
-                                  else coll_sizes):
+                                  coll_sizes + more_sizes.get(name, ())):
                         x = random_rank_major(shape_of(n, elems), dtype, gen)
                         for root in roots:
                             got = fn(x, op, root, False)
@@ -415,6 +432,29 @@ def kernel_vs_plain(pr, gen) -> None:
                             checked += 1
         log(f"[kernel-vs-plain] {name}: {checked} cases bitwise equal, "
             f"all semaphores 0 ({time.time() - t0:.1f} s)")
+
+    # The reduce-scatter's wavefront with one stripe: 41 segments, more
+    # than the n - 1 steps, on blocks that are not whole vectors; its
+    # buffers in a cluster's shared memory (the plan's choice up to n = 8)
+    # and in L2 (the plan's choice at n = 12).
+    t0 = time.time()
+    checked = 0
+    for n, clusters in ((3, (True, False)), (8, (True, False)),
+                        (12, (False,))):
+        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+            x = random_rank_major((n, n, 40 * rs_seg + 77), dtype, gen)
+            for op in ("sum", "max", "min", "prod"):
+                for cluster in clusters:
+                    got = pr._rs_launch(x, op, stripes=1, cluster=cluster)
+                    torch.cuda.synchronize()
+                    check_sems(KERNELS["ring_reduce_scatter"])
+                    equal_or_raise(got, pr.ring_reduce_scatter_plain(x, op),
+                                   f"ring_reduce_scatter one stripe n={n} "
+                                   f"{dtype} {op} cluster={cluster}")
+                    checked += 1
+    log(f"[kernel-vs-plain] ring_reduce_scatter with one stripe over 41 "
+        f"segments, buffers in shared memory and in L2: {checked} cases "
+        f"bitwise equal, all semaphores 0 ({time.time() - t0:.1f} s)")
 
     # The data movers copy bytes: other element sizes, at odd row widths
     # (no lane padding: the wrappers directly), take the element-sized
@@ -1643,6 +1683,7 @@ def timed_case(pr, kernel, nbytes, gen):
 
 def measure(pr, gen, errs, launches) -> list:
     import torch
+    from ompi_tpu_torch.core.counters import KERNELS
 
     rows = []
     sizes = dict(MAIN_SIZES, **{k: GIB for k in COLL_CASES},
@@ -1653,6 +1694,7 @@ def measure(pr, gen, errs, launches) -> list:
         fn, plain, library, nbytes_moved, dtype, op = timed_case(
             pr, kernel, nbytes, gen)
         ms = p50_ms(fn, KERNEL_REPS)
+        plan = KERNELS[kernel].last_plan  # as the timed launches ran
         plain_ms = p50_ms(plain, 3 if nbytes >= GIB else 10)
         library_ms = p50_ms(library, KERNEL_REPS)
         exact_sum_ms = None
@@ -1692,15 +1734,27 @@ def measure(pr, gen, errs, launches) -> list:
         if kernel == "ring_allreduce":
             extra += ring_split(pr, gen, row)
         if kernel == "tree_reduce":
-            sm = torch.cuda.get_device_properties(0).multi_processor_count
-            row["blocks_per_relative_rank"] = pr.tree_blocks(
-                N, pr.TREE_BLOCKS_PER_SM * sm,
-                -(-nbytes // 4 // pr.TREE_SEG_COLS))
-            row["segment_cols"] = pr.TREE_SEG_COLS
+            row["blocks_per_relative_rank"] = plan["blocks_per_relative_rank"]
+            row["segment_cols"] = plan["segment_cols"]
             log(f"[tree] tree_reduce at {nbytes} B/rank: blocks per relative "
-                f"rank {row['blocks_per_relative_rank']} of "
-                f"{pr.TREE_THREADS} threads, segments of "
-                f"{pr.TREE_SEG_COLS} columns")
+                f"rank {plan['blocks_per_relative_rank']} of "
+                f"{plan['threads']} threads, segments of "
+                f"{plan['segment_cols']} columns")
+        if kernel == "tree_bcast":
+            row["blocks_per_rank"] = plan["blocks_per_rank"]
+            row["segment_bytes"] = plan["segment_bytes"]
+            log(f"[tree] tree_bcast at {nbytes} B/rank: "
+                f"{plan['blocks_per_rank']} blocks of {plan['threads']} "
+                f"threads per rank, {plan['segments']} segments of "
+                f"{plan['segment_bytes']} B")
+        if kernel == "ring_reduce_scatter":
+            for key in ("stripes", "threads", "segment_bytes", "buffers",
+                        "buffer_bytes"):
+                row[key] = plan[key]
+            log(f"[ring] ring_reduce_scatter at {nbytes} B sent/rank: "
+                f"{plan['stripes']} stripes x {plan['threads']} threads per "
+                f"rank, segments of {plan['segment_bytes']} B, buffers "
+                f"{plan['buffer_bytes']} B in {plan['buffers']}")
         if kernel == "sched_table":
             row["program"] = "segmented_ring(8, 2)"
             row["also"] = []

@@ -21,12 +21,18 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
 - ``ring_reduce_scatter`` (``_reduce_scatter_kernel``) and
   ``ring_allgather`` (``_allgather_kernel``): the two halves of the
   ring, n-1 steps each; one after the other they are the
-  ``pallas_rsag`` allreduce, bitwise equal to ``ring_allreduce``.
+  ``pallas_rsag`` allreduce, bitwise equal to ``ring_allreduce``. The
+  reduce-scatter folds and forwards in one pass per step, segment by
+  segment, in a wavefront: in time slot t a rank makes step k of segment
+  t-k for every k (``simulate_ring_rs_fused``); up to 8 ranks the ranks'
+  blocks of a stripe form a thread-block cluster and hand the partials
+  over in each other's shared memory, beyond in buffers that fit in L2.
 - ``tree_reduce`` (``_tree_reduce_kernel``): binomial reduce to a root,
   as a segmented "get" tree: a parent reads each child's finished row
   segment by segment after that segment's flag, with no comm slot.
 - ``tree_bcast`` (``_tree_bcast_kernel``): binomial broadcast from a
-  root, with the receiver's "ready" handshake before each store.
+  root, as a segmented "get" tree: a child copies each segment of its
+  parent's finished row after that segment's flag, every round at once.
 - ``ring_allreduce_bidir`` (``_allreduce_bidir_kernel``): the ring in
   both directions at once, half of every ring block each, as two
   independent groups of thread blocks with their own slots and flags.
@@ -133,6 +139,38 @@ RING_STRIPE_BYTES = 8192
 TREE_SEG_COLS = 1 << 14
 #: Threads of a tree-reduce block, and its blocks per SM (csrc/tree_reduce.cu).
 TREE_THREADS, TREE_BLOCKS_PER_SM = 512, 2
+#: Bytes of a tree-bcast segment, the threads of its blocks and its
+#: blocks per SM, split equally over the ranks (csrc/tree_bcast.cu). The
+#: best of a sweep at 1 GiB per rank, n = 8, on an NVIDIA H100 (PERF.md,
+#: tools/rs_bcast_check.py): 3.955 ms; 128 Ki or 256 Ki bytes with 512 x 1
+#: or 1024 x 1 and 64 Ki with 512 x 2 within 8%, 16 Ki with 512 x 1 8.6 ms.
+BCAST_SEG_BYTES = 128 << 10
+BCAST_THREADS, BCAST_BLOCKS_PER_SM = 512, 1
+#: The ring reduce-scatter's plans (csrc/ring_reduce_scatter.cu,
+#: ``_rs_plan``): bytes of a segment (one buffer; a stripe takes at least
+#: one), threads per block and blocks per SM. Up to ``RS_CLUSTER_RANKS``
+#: ranks (the portable cluster size) one cluster of the n ranks' blocks
+#: runs each stripe, its buffers and flags in the reading rank's shared
+#: memory, a block's buffers within ``RS_SMEM_BYTES``; beyond, the buffers
+#: are in HBM, all blocks' within ``RS_SLOT_BYTES`` so that they stay in
+#: the 50 MB L2. The sweep at 1 GiB sent per rank, n = 8, on an NVIDIA
+#: H100 (PERF.md, tools/rs_bcast_check.py): in shared memory 5.308 ms at
+#: 2 KiB, 128 x 4 (256 x 2 at 4 KiB 5.545, 512 x 1 at 8 KiB 5.924); in L2
+#: 6.2-6.9 ms for every shape whose buffers take 6-26 MB (but 2-4 KiB
+#: segments of 512 threads, which idle them: 11.6-22.2), 8.6-9.3 from 50
+#: MB on; `x.sum(0)` 5.64-5.71.
+RS_CLUSTER_RANKS = 8
+RS_CLUSTER_SEG_BYTES, RS_CLUSTER_THREADS, RS_CLUSTER_BLOCKS_PER_SM = \
+    2 << 10, 128, 4
+RS_SEG_BYTES, RS_THREADS, RS_BLOCKS_PER_SM = 8 << 10, 512, 1
+RS_SMEM_BYTES, RS_SLOT_BYTES = 48 << 10, 24 << 20
+#: Buffers per step of the reduce-scatter's wavefront, one for each
+#: parity of the time slot (``simulate_ring_rs_fused``).
+RS_BUFS = 2
+#: Most segments per row (or ring block) in the plain versions of the
+#: segmented bcast and reduce-scatter: the simulators take a Python step
+#: per segment, and no bit depends on the segment.
+PLAIN_SEGS = 64
 
 RING = KernelCounter("ring_allreduce")
 RD = KernelCounter("ring_allreduce_rd")
@@ -363,6 +401,80 @@ def simulate_ring_fused(blocks: torch.Tensor, op: Op, *,
     return out, _residue(sems)
 
 
+def _rs_forwards(p: int, n: int, n_segs: int) -> bool:
+    """Whether time slot ``p`` of the reduce-scatter's wavefront has a
+    pass that forwards into the right neighbour's buffers: a step k in
+    0 .. n-3 whose segment p - k is in 0 .. n_segs-1."""
+    return p >= 0 and n > 2 and p - n_segs + 1 <= n - 3
+
+
+def simulate_ring_rs_fused(blocks: torch.Tensor, op: Op, *,
+                           seg_cols: Optional[int] = None,
+                           credit: str = "after_read",
+                           rng: Optional[random.Random] = None):
+    """Run ``ring_reduce_scatter``'s fold-then-forward wavefront on (n,
+    n, W) blocks, each cut into segments of ``seg_cols`` columns (the
+    last ragged; default one). Step k of segment i at rank me folds
+    ``combine(arrival, x[me][me-k-2])``, the JAX package's operands in
+    its order; step 0's arrival is the left neighbour's block me-2 of its
+    input, step k's the left's step k-1 of the same segment, and step n-2
+    writes out[me]. In time slot t rank me makes step k of segment
+    t - k for every k that has one, so the arrivals it reads were made
+    in the left's slot t - 1: they sit in its buffers (k, t mod 2), and
+    it stores into the right's buffers (k+1, (t + 1) mod 2). Before slot
+    t it waits for the left's arrivals (one recv flag per parity) and,
+    before it forwards into the buffers the right read in slot t - 1,
+    for the right's credit; after its passes it raises the right's recv
+    flag and credits the parity it read to the left where the left
+    writes it again. Every wait and raise is
+    made only where the other side has its counterpart, so every flag
+    ends at 0. ``credit`` "before_read" credits before the passes: the
+    negative control. Returns (out (n, W), residue) as ``simulate_ring``
+    does."""
+    if credit not in ("after_read", "before_read"):
+        raise ArgumentError(f"unknown credit placement {credit!r}")
+    n, W = _ring_blocks(blocks, True)
+    seg = W if seg_cols is None else seg_cols
+    if seg <= 0:
+        raise ArgumentError(f"bad wavefront segment {seg}")
+    n_segs = -(-W // seg)
+    out = blocks.new_zeros((n, W))
+    comm = blocks.new_zeros((n, max(n - 2, 0), RS_BUFS, seg))
+    sems: dict = collections.defaultdict(int)
+
+    def fwd(p):
+        return _rs_forwards(p, n, n_segs)
+
+    def rank(me):
+        left, right = (me - 1) % n, (me + 1) % n
+        for t in range(n_segs + n - 2):
+            if fwd(t - 1):
+                yield (me, "recv", t % 2), 1
+            if fwd(t) and fwd(t - 2):
+                yield (me, "cap", (t + 1) % 2), 1
+            credit_slot = fwd(t - 1) and fwd(t + 1)
+            if credit == "before_read" and credit_slot:
+                sems[left, "cap", t % 2] += 1
+                yield _PAUSE
+            for k in range(max(0, t - n_segs + 1), min(n - 2, t) + 1):
+                cols = slice((t - k) * seg, min(W, (t - k + 1) * seg))
+                w = cols.stop - cols.start
+                arrival = (blocks[left, (me - 2) % n, cols] if k == 0
+                           else comm[me, k - 1, t % 2, :w])
+                val = op.combine(arrival, blocks[me, (me - k - 2) % n, cols])
+                if k == n - 2:
+                    out[me, cols] = val
+                else:
+                    comm[right, k, (t + 1) % 2, :w] = val
+            if fwd(t):
+                sems[right, "recv", (t + 1) % 2] += 1
+            if credit == "after_read" and credit_slot:
+                sems[left, "cap", t % 2] += 1
+
+    _drive([rank(r) for r in range(n)], sems, rng)
+    return out, _residue(sems)
+
+
 def simulate_ring_bidir(blocks: torch.Tensor, op: Op, *, credit: str = "port",
                         rng: Optional[random.Random] = None,
                         shared_flags: bool = False):
@@ -569,6 +681,19 @@ def tree_children(rel: int, n: int) -> list[int]:
     return children
 
 
+def bcast_children(rel: int, n: int) -> list[int]:
+    """Relative ranks that copy relative rank ``rel``'s row in the
+    binomial bcast: rel + 2^k for every 2^k > rel with rel + 2^k < n,
+    in round order. In round k of the reference every rel < 2^k with
+    rel + 2^k < n sends to rel + 2^k, so rel's parent is rel minus its
+    highest set bit."""
+    children, bit = [], 1 << rel.bit_length() if rel else 1
+    while rel + bit < n:
+        children.append(rel + bit)
+        bit <<= 1
+    return children
+
+
 def tree_blocks(n: int, total: int, most: Optional[int] = None) -> list[int]:
     """Thread blocks per relative rank of the tree reduce's grid of
     ``total`` blocks (at least n). Relative rank rel reads its input and
@@ -665,32 +790,53 @@ def simulate_tree_reduce(flat: torch.Tensor, op: Op, root: int = 0, *,
 
 
 def simulate_tree_bcast(flat: torch.Tensor, root: int = 0, *,
+                        seg_cols: Optional[int] = None,
+                        blocks: Optional[list[int]] = None,
+                        copy: str = "after_flag",
                         rng: Optional[random.Random] = None):
-    """Run the binomial broadcast schedule on ``flat`` (n, L). Every
-    rank first copies its row into out; in round k a receiver
-    (2^k <= rel < 2^(k+1)) signals ready to its sender rel - 2^k and
-    waits, and the sender waits for ready, then stores its out row into
-    the receiver's. Each round has its own flag pair. Returns (out,
-    residue); every row of out is row ``root`` of flat."""
+    """Run the segmented "get" binomial bcast on ``flat`` (n, L), one
+    program per (relative rank, thread block): block j of relative rank
+    rel's g blocks (``blocks[rel]``, one each by default) takes the
+    segments j, j + g, ... of ``seg_cols`` columns (default
+    ``BCAST_SEG_BYTES``' worth; the last ragged). For each it copies the
+    segment of x[root] (the root) or of its parent's row of out (rel
+    minus its highest bit; after the segment's flag, keyed (rel, s)) into
+    its own row of out, then raises the flag of each child
+    (``bcast_children``). ``copy`` "before_flag" copies first and waits
+    for the flag after: the negative control. Returns (out, residue);
+    every row of out is row ``root`` of flat."""
+    if copy not in ("after_flag", "before_flag"):
+        raise ArgumentError(f"unknown copy placement {copy!r}")
     n, L = flat.shape
-    out = torch.empty_like(flat)
+    seg = (BCAST_SEG_BYTES // flat.element_size() if seg_cols is None
+           else seg_cols)
+    if seg <= 0:
+        raise ArgumentError(f"bad segment {seg}")
+    blocks = [1] * n if blocks is None else blocks
+    if len(blocks) != n or min(blocks) < 1:
+        raise ArgumentError(f"need one or more blocks per rank, got {blocks}")
+    n_segs = -(-L // seg)
+    out = torch.zeros_like(flat)  # rows not yet written read as 0
     sems: dict = collections.defaultdict(int)
-    rounds = (n - 1).bit_length()
 
-    def rank(me):
-        rel = (me - root) % n
-        out[me] = flat[me]
-        for k in range(rounds):
-            bit = 1 << k
-            if bit <= rel < 2 * bit:
-                sems[(me - bit) % n, "ready", k] += 1
-                yield (me, "recv", k), 1
-            elif rel < bit and rel + bit < n:
-                yield (me, "ready", k), 1
-                out[(me + bit) % n] = out[me]
-                sems[(me + bit) % n, "recv", k] += 1
+    def block(rel, j, g):
+        me = (rel + root) % n
+        src = (out[(rel - (1 << (rel.bit_length() - 1)) + root) % n] if rel
+               else flat[me])
+        kids = bcast_children(rel, n)
+        for s in range(j, n_segs, g):
+            cols = slice(s * seg, min(L, (s + 1) * seg))
+            if rel and copy == "after_flag":
+                yield ("ready", rel, s), 1
+            out[me, cols] = src[cols]
+            if rel and copy == "before_flag":
+                yield ("ready", rel, s), 1
+            for c in kids:
+                sems["ready", c, s] += 1
+            yield _PAUSE
 
-    _drive([rank(r) for r in range(n)], sems, rng)
+    _drive([block(rel, j, blocks[rel]) for rel in range(n)
+            for j in range(blocks[rel])], sems, rng)
     return out, _residue(sems)
 
 
@@ -716,8 +862,17 @@ def ring_allreduce_rd_plain(flat: torch.Tensor, op) -> torch.Tensor:
     return _checked(simulate_rd(flat, op_lookup(op)))
 
 
+def _plain_seg(cols: int, seg: int) -> int:
+    """A segmented kernel's segment of ``seg`` columns, or a longer one
+    so that ``cols`` columns make at most ``PLAIN_SEGS`` segments."""
+    return max(seg, -(-cols // PLAIN_SEGS))
+
+
 def ring_reduce_scatter_plain(blocks: torch.Tensor, op) -> torch.Tensor:
-    return _checked(simulate_ring(blocks, op_lookup(op), phase="rs"))
+    W = blocks.shape[-1]
+    seg = _plain_seg(W, RS_SEG_BYTES // blocks.element_size())
+    return _checked(simulate_ring_rs_fused(blocks, op_lookup(op),
+                                           seg_cols=seg))
 
 
 def ring_allgather_plain(flat: torch.Tensor) -> torch.Tensor:
@@ -729,7 +884,8 @@ def tree_reduce_plain(flat: torch.Tensor, op, root: int) -> torch.Tensor:
 
 
 def tree_bcast_plain(flat: torch.Tensor, root: int) -> torch.Tensor:
-    return _checked(simulate_tree_bcast(flat, root))
+    seg = _plain_seg(flat.shape[1], BCAST_SEG_BYTES // flat.element_size())
+    return _checked(simulate_tree_bcast(flat, root, seg_cols=seg))
 
 
 def ring_allreduce_bidir_plain(blocks: torch.Tensor, op) -> torch.Tensor:
@@ -773,16 +929,19 @@ _ARGTYPES = {
         [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, L, rounds, op, dtype, dev, stream
     "ring_allreduce_rd": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],
-    # x, out, comm, sems, n, stripes, W, op, dtype, dev, stream
-    "ring_reduce_scatter": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, threads, block bytes, seg vectors,
+    # n_segs, cluster, op, dtype, dev, stream
+    "ring_reduce_scatter": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I,
+                            _I, _I, _P],
     # x, out, comm, sems, n, stripes, W, dtype, dev, stream
     "ring_allgather": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
     # x, out, sems, blocks per relative rank, n, threads, L, seg, n_segs,
     # root, op, dtype, dev, stream
     "tree_reduce": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _I,
                     _P],
-    # x, out, comm, sems, n, stripes, L, root, dtype, dev, stream
-    "tree_bcast": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+    # x, out, sems, n, blocks per rank, threads, row bytes, seg bytes,
+    # n_segs, root, dev, stream
+    "tree_bcast": [_P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, W, half, op, dtype, dev, stream
     "ring_allreduce_bidir": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I,
                              _P],
@@ -1031,11 +1190,100 @@ def ring_reduce_scatter(blocks: torch.Tensor, op) -> torch.Tensor:
     combined over all ranks, folded in ring order from rank r+1 round
     to rank r (the first half of ``ring_allreduce``)."""
     op = op_lookup(op)
-    n, C = _ring_blocks(blocks, True)
+    _ring_blocks(blocks, True)
     if not blocks.is_cuda:
         return ring_reduce_scatter_plain(blocks, op)
-    return _launch("ring_reduce_scatter", RS, blocks, (n, C), C, 2 * n,
-                   RING_NSEM, (C,), _codes(op, blocks.dtype))
+    return _rs_launch(blocks, op)
+
+
+def _rs_plan(n: int, block_bytes: int, sm_count: int,
+             cluster: Optional[bool] = None) -> tuple[int, int, int, bool]:
+    """(stripes, threads per block, segment bytes, cluster) of
+    ``ring_reduce_scatter`` for n ranks of ``block_bytes``-byte ring
+    blocks: clusters up to ``RS_CLUSTER_RANKS`` ranks (unless ``cluster``
+    says otherwise), each form with its segment, threads and blocks per
+    SM; stripes of at least a segment, as many as that many blocks per SM
+    allow; segments no longer than a stripe, and shortened until a
+    block's (n-2) x RS_BUFS buffers take at most ``RS_SMEM_BYTES`` of its
+    shared memory (clusters) or all blocks' at most ``RS_SLOT_BYTES``
+    (L2)."""
+    if cluster is None:
+        cluster = n <= RS_CLUSTER_RANKS
+    elif cluster and n > RS_CLUSTER_RANKS:
+        raise ArgumentError(f"no cluster of {n} ranks (at most "
+                            f"{RS_CLUSTER_RANKS})")
+    seg, threads, per_sm = (
+        (RS_CLUSTER_SEG_BYTES, RS_CLUSTER_THREADS, RS_CLUSTER_BLOCKS_PER_SM)
+        if cluster else (RS_SEG_BYTES, RS_THREADS, RS_BLOCKS_PER_SM))
+    stripes = _stripes(n, block_bytes, per_sm * sm_count, seg)
+    seg = min(seg, -(-block_bytes // 16 // stripes) * 16)
+    per_block = RS_BUFS * max(n - 2, 0)
+    budget = RS_SMEM_BYTES if cluster else RS_SLOT_BYTES // (n * stripes)
+    if per_block:
+        seg = min(seg, max(16, budget // per_block // 16 * 16))
+    return stripes, threads, seg, cluster
+
+
+@functools.lru_cache(maxsize=64)
+def _rs_clusters(n: int, threads: int, seg_bytes: int, device: int) -> int:
+    """Clusters of the reduce-scatter's n blocks that the card holds at
+    once (the cluster launch runs the rest after them)."""
+    fn = build.library("ring_reduce_scatter").ompi_ring_reduce_scatter_clusters
+    fn.argtypes, fn.restype = [_I, _I, _LL, _I], ctypes.c_int
+    got = fn(n, threads, seg_bytes // 16, device)
+    if got <= 0:
+        raise KernelError(f"ring_reduce_scatter: no cluster of {n} blocks "
+                          f"fits (CUDA error {-got})")
+    return got
+
+
+def _rs_launch(blocks: torch.Tensor, op, stripes: Optional[int] = None,
+               threads: Optional[int] = None,
+               seg_bytes: Optional[int] = None,
+               cluster: Optional[bool] = None,
+               defines: tuple = ()) -> torch.Tensor:
+    """Launch csrc/ring_reduce_scatter.cu on (n, n, C) CUDA blocks with
+    the plan's stripes, threads, segment and buffer memory (shared memory
+    in clusters, or L2), or the ones given: the tests' and the
+    measurement tools' choices; ``defines`` names a probe build. A
+    cluster launch takes at most as many stripes as clusters fit on the
+    card at once. ``RS.last_plan`` records what was launched."""
+    n, C = _ring_blocks(blocks, True)
+    codes = _codes(op_lookup(op), blocks.dtype)
+    cap = require_kernel_device(blocks)
+    vec = 16 // blocks.element_size()
+    cols = -(-C // vec) * vec  # ring blocks of whole 16-byte vectors
+    x = _aligned(blocks, cols)
+    c_bytes = cols * blocks.element_size()
+    plan = _rs_plan(n, c_bytes, cap.sm_count, cluster)
+    threads, seg_bytes = threads or plan[1], seg_bytes or plan[2]
+    cluster = plan[3]
+    dev = x.device.index or 0
+    if stripes is None:
+        stripes = plan[0]
+        if cluster:
+            stripes = min(stripes, _rs_clusters(n, threads, seg_bytes, dev))
+    seg_v = seg_bytes // 16
+    sw = -(-(c_bytes // 16) // stripes)  # vectors per stripe
+    n_segs = -(-sw // seg_v)
+    out = x.new_empty((n, cols))
+    stream = _raw_stream(x)
+    buffer_bytes = n * stripes * RS_BUFS * max(n - 2, 0) * seg_bytes
+    comm = _scratch(x, stream, "comm", 0 if cluster else buffer_bytes)
+    sems = _scratch(x, stream, "flags", n * stripes * 2 * RS_BUFS)
+    err = _entry("ring_reduce_scatter", defines)(
+        x.data_ptr(), out.data_ptr(), comm.data_ptr(), sems.data_ptr(), n,
+        stripes, threads, c_bytes, seg_v, n_segs, int(cluster), *codes, dev,
+        stream)
+    if err:
+        raise KernelError(f"ring_reduce_scatter launch failed: CUDA error "
+                          f"{err}")
+    RS.launched(sems, {
+        "stripes": stripes, "threads": threads, "segment_bytes": seg_bytes,
+        "segments": n_segs,
+        "buffers": "cluster shared memory" if cluster else "L2",
+        "buffer_bytes": buffer_bytes})
+    return out[:, :C].contiguous() if cols != C else out
 
 
 def ring_allgather(flat: torch.Tensor) -> torch.Tensor:
@@ -1082,7 +1330,8 @@ def _tree_launch(flat: torch.Tensor, op, root: int,
     """Launch csrc/tree_reduce.cu on (n, L) CUDA rows: ``per_sm`` blocks
     of ``threads`` per SM, split by ``tree_blocks`` (or by the ``blocks``
     per relative rank given; other segments, threads and blocks per SM
-    are the measurement tools' sweep; ``defines`` names a probe build)."""
+    are the measurement tools' sweep; ``defines`` names a probe build).
+    ``TREE_REDUCE.last_plan`` records what was launched."""
     n, L = flat.shape
     codes = _codes(op_lookup(op), flat.dtype)
     cap = require_kernel_device(flat)
@@ -1102,20 +1351,53 @@ def _tree_launch(flat: torch.Tensor, op, root: int,
     if err:
         raise KernelError(f"tree_reduce launch failed: CUDA error {err} "
                           f"(grid {grid})")
-    TREE_REDUCE.launched(sems)
+    TREE_REDUCE.launched(sems, {
+        "blocks_per_relative_rank": list(counts), "threads": threads,
+        "segment_cols": seg_cols, "segments": n_segs})
     return out[:, :L].contiguous() if cols != L else out
 
 
 def tree_bcast(flat: torch.Tensor, root: int = 0) -> torch.Tensor:
     """(n, L) per-rank buffers -> (n, L) with row ``root`` in every row,
     over a binomial tree."""
-    n, L = flat.shape
+    n, _ = flat.shape
     _check_root(root, n)
     if not flat.is_cuda:
         return tree_bcast_plain(flat, root)
-    rounds = (n - 1).bit_length()
-    return _launch("tree_bcast", TREE_BCAST, flat, flat.shape, L, 0,
-                   2 * rounds, (L, root), _dtype_code(flat.dtype))
+    return _bcast_launch(flat, root)
+
+
+def _bcast_launch(flat: torch.Tensor, root: int,
+                  seg_bytes: int = BCAST_SEG_BYTES,
+                  threads: int = BCAST_THREADS,
+                  per_sm: int = BCAST_BLOCKS_PER_SM,
+                  defines: tuple = ()) -> torch.Tensor:
+    """Launch csrc/tree_bcast.cu on (n, L) CUDA rows: ``per_sm`` blocks
+    of ``threads`` per SM, split equally over the ranks (other segments,
+    threads and blocks per SM are the measurement tools' sweep;
+    ``defines`` names a probe build). ``TREE_BCAST.last_plan`` records
+    what was launched."""
+    n, L = flat.shape
+    _dtype_code(flat.dtype)
+    cap = require_kernel_device(flat)
+    vec = 16 // flat.element_size()
+    cols = -(-L // vec) * vec  # rows of whole 16-byte vectors
+    x = _aligned(flat, cols)
+    row = cols * flat.element_size()
+    n_segs = -(-row // seg_bytes)
+    per_rank = max(1, min(per_sm * cap.sm_count // n, n_segs))
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    sems = _scratch(x, stream, "flags", max(n - 1, 1) * n_segs)
+    err = _entry("tree_bcast", defines)(
+        x.data_ptr(), out.data_ptr(), sems.data_ptr(), n, per_rank, threads,
+        row, seg_bytes, n_segs, root, x.device.index or 0, stream)
+    if err:
+        raise KernelError(f"tree_bcast launch failed: CUDA error {err}")
+    TREE_BCAST.launched(sems, {
+        "blocks_per_rank": per_rank, "threads": threads,
+        "segment_bytes": seg_bytes, "segments": n_segs})
+    return out[:, :L].contiguous() if cols != L else out
 
 
 def ring_allreduce_bidir(blocks: torch.Tensor, op) -> torch.Tensor:

@@ -41,17 +41,21 @@ SPC = SpcRegistry()
 
 class KernelCounter:
     """Launch count of one CUDA kernel, plus the semaphore scratch of its
-    last launch (read back to check that every flag ended at 0)."""
+    last launch (read back to check that every flag ended at 0) and, for
+    wrappers that plan their grid, that launch's plan (a dict: blocks,
+    threads, segments, as the wrapper chose them)."""
 
     def __init__(self, name: str) -> None:
         self.name = name
         self.launches = 0
         self.last_sems: Optional[object] = None
+        self.last_plan: Optional[dict] = None
         KERNELS[name] = self
 
-    def launched(self, sems) -> None:
+    def launched(self, sems, plan: Optional[dict] = None) -> None:
         self.launches += 1
         self.last_sems = sems
+        self.last_plan = plan
 
 
 #: name -> counter of every kernel wrapper that has been imported.

@@ -1,8 +1,10 @@
 // Shared pieces of the collective kernels: the combine ops, the flag
 // primitives that stand for the Pallas semaphores, L1-bypassing
-// loads/stores for comm slots, the ring schedule (reduce-scatter,
-// allgather or both, in either ring direction), the byte copies of the
-// data-movement kernels and the cooperative launch.
+// loads/stores for comm slots, 16-byte vector combines, L2 cache
+// policies for data another block reads after a flag, the ring schedule
+// (allgather, or reduce-scatter then allgather, in either ring
+// direction), the byte copies of the data-movement kernels and the
+// cooperative launch.
 //
 // Ranks on one card. A rank-major buffer holds n virtual ranks in one
 // HBM; each rank is played by its own thread blocks (one per column
@@ -239,13 +241,49 @@ __device__ __forceinline__ uint4 combine_vec(uint4 a, uint4 b) {
                     W::apply(a.z, b.z), W::apply(a.w, b.w));
 }
 
+// ---- L2 cache policies -----------------------------------------------------
+//
+// For rows or slots that another block reads after a flag: the writer
+// stores evict-last and the reader reads evict-first, so data not yet
+// read outlasts data already read (the tree reduce: 2-4% at 1 GiB per
+// rank on an H100, PERF.md). Neither touches L1: another SM wrote it.
+__device__ __forceinline__ unsigned long long l2_policy(bool last) {
+  unsigned long long p;
+  if (last)
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  else
+    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint4 ld_child(const uint4* p,
+                                          unsigned long long policy) {
+  uint4 v;
+  asm volatile(
+      "ld.global.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, "
+      "[%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy)
+      : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_child(uint4* p, uint4 v,
+                                         unsigned long long policy) {
+  asm volatile(
+      "st.global.L1::no_allocate.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, "
+      "%4}, %5;"
+      :
+      : "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(policy)
+      : "memory");
+}
+
 // ---- the ring schedule -----------------------------------------------------
 
 // Flag slots per (rank, stripe).
 enum RingFlag { F_RECV = 0, F_CAP = 2, F_SEG = 4, RING_NSEM = 5 };
 
-// Which halves of the ring a schedule runs: n-1 reduce-scatter steps,
-// n-1 allgather steps, or both (the allreduce).
+// Which halves of the ring a schedule runs: n-1 allgather steps alone,
+// or n-1 reduce-scatter steps before them (the allreduce). The
+// reduce-scatter alone has its own kernel (ring_reduce_scatter.cu).
 enum RingPhase { PH_RS = 1, PH_AG = 2, PH_BOTH = 3 };
 
 // Block (r, s) of the grid plays rank r on column stripe s of every ring
@@ -255,8 +293,8 @@ enum RingPhase { PH_RS = 1, PH_AG = 2, PH_BOTH = 3 };
 // `dir` 1 sends to rank r+1, -1 to rank r-1, with the block indices
 // mirrored (the reference's bidirectional kernel: blk = r - dir(step+2)).
 // Rank-major layouts: x is (n ranks, n blocks, W)
-// and out the same for PH_BOTH; PH_RS writes out (n, W), each rank's
-// own reduced block; PH_AG reads x (n, W), each rank's own block. comm
+// and out the same for PH_BOTH; PH_AG reads x (n, W), each rank's own
+// block, and writes out (n, n, W). comm
 // is (n, stripes, 2, sw); sems is (n, stripes, RING_NSEM). The ring runs
 // segment by segment over `seg` columns; with SEGMENTED a per-segment
 // credit keeps a rank from starting segment i+1 into its right
@@ -266,7 +304,7 @@ enum RingPhase { PH_RS = 1, PH_AG = 2, PH_BOTH = 3 };
 // the send FROM that slot (every step but the last), not after filling
 // it as the reference does; the left neighbour spends the credit writing
 // that slot one step later. There is no post-seed credit, so a
-// two-rank PH_RS or PH_AG ring (one step) has no credit at all.
+// two-rank PH_AG ring (one step) has no credit at all.
 template <typename T, int OP, bool SEGMENTED, int PHASE>
 __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
                                               T* __restrict__ out, T* comm,
@@ -274,7 +312,7 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
                                               long long W, long long seg,
                                               int n_segs, int dir = 1) {
   constexpr bool kRS = (PHASE & PH_RS) != 0;
-  constexpr bool kAG = (PHASE & PH_AG) != 0;
+  static_assert((PHASE & PH_AG) != 0, "a ring schedule ends in allgather");
   const int b = blockIdx.x % (n * stripes);
   const int r = b / stripes;
   const int s = b % stripes;
@@ -286,7 +324,7 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
   const long long c0 = (long long)s * sw;
   const long long cw = c0 < seg ? (seg - c0 < sw ? seg - c0 : sw) : 0;
   const int rs_steps = kRS ? n - 1 : 0;
-  const int nsteps = rs_steps + (kAG ? n - 1 : 0);
+  const int nsteps = rs_steps + n - 1;
 
   T* my_comm = comm + ((long long)r * stripes + s) * 2 * sw;
   T* right_comm = comm + ((long long)right * stripes + s) * 2 * sw;
@@ -294,10 +332,8 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
   int* left_sem = sems + (left * stripes + s) * RING_NSEM;
   int* right_sem = sems + (right * stripes + s) * RING_NSEM;
   const T* xr = x + (long long)r * (kRS ? n : 1) * W;
-  T* outr = out + (long long)r * (kAG ? n : 1) * W;
-  // This rank's own finished block: row r of the PH_RS output, block r
-  // of its row otherwise.
-  T* own = kAG ? outr + (long long)r * W : outr;
+  T* outr = out + (long long)r * n * W;
+  T* own = outr + (long long)r * W;  // this rank's own finished block
 
   if (SEGMENTED && threadIdx.x == 0) signal(left_sem + F_SEG, 1);  // prime
   for (int si = 0; si < n_segs; ++si) {
@@ -332,11 +368,9 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
         const T* xb = xr + (long long)blk * W + off;
         T* ob = own + off;
         const bool last = step == n - 2;  // blk == r: own block finished
-        // After the last fold only an allgather still sends the slot.
-        const bool keep = kAG || !last;
         for (long long j = threadIdx.x; j < cw; j += blockDim.x) {
           const T v = Combine<T, OP>::apply(ld_cg(arrived + j), xb[j]);
-          if (keep) st_cg(arrived + j, v);
+          st_cg(arrived + j, v);
           if (last) ob[j] = v;
         }
       } else {

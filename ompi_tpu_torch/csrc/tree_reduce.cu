@@ -49,39 +49,6 @@ namespace ompi_ring {
 constexpr int kTreeMaxRanks = 512;
 constexpr int kTreeUnroll = 4;
 
-// L2 cache policies for the rows other blocks read: a child stores its
-// row evict-last and its parent reads it evict-first, so rows not yet
-// read outlast rows already read (measured on the card: 2-4% at 1 GiB
-// per rank, PERF.md). Neither touches L1: another SM wrote the row.
-__device__ __forceinline__ unsigned long long l2_policy(bool last) {
-  unsigned long long p;
-  if (last)
-    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
-  else
-    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
-  return p;
-}
-__device__ __forceinline__ uint4 ld_child(const uint4* p,
-                                          unsigned long long policy) {
-  uint4 v;
-  asm volatile(
-      "ld.global.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, "
-      "[%4], %5;"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p), "l"(policy)
-      : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_child(uint4* p, uint4 v,
-                                         unsigned long long policy) {
-  asm volatile(
-      "st.global.L1::no_allocate.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, "
-      "%4}, %5;"
-      :
-      : "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(policy)
-      : "memory");
-}
-
 // Blocks [first[rel], first[rel + 1]) of the grid play relative rank rel.
 struct TreeSplit {
   int first[kTreeMaxRanks + 1];

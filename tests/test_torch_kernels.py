@@ -158,23 +158,61 @@ def test_redesigned_kernels_match_plain_at_several_segments(cuda, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["ring", "tree"])
+@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("n", [2, 3, 8, 12])
+def test_bcast_and_reduce_scatter_match_plain_at_several_segments(cuda, n,
+                                                                  dtype):
+    """The segmented bcast over four segments, the last ragged, at roots
+    0 and n - 1; the reduce-scatter wavefront at ragged blocks of fewer
+    segments than its n - 1 steps and of many, with the plan's stripes
+    and with three, its buffers where the plan puts them (a cluster's
+    shared memory up to n = 8, L2 at n = 12) and in L2: bitwise their
+    plain versions, every flag at 0."""
+    elem = torch.empty((), dtype=TDT[dtype]).element_size()
+    y = _input(n, 3 * pr.BCAST_SEG_BYTES // elem + 5000, dtype, cuda)
+    for root in (0, n - 1):
+        got = _launched_once(pr.TREE_BCAST, lambda: pr.tree_bcast(y, root))
+        assert torch.equal(_bits(got), _bits(y[root].expand_as(y)))
+        assert torch.equal(_bits(got), _bits(pr.tree_bcast_plain(y, root)))
+    seg = pr.RS_SEG_BYTES // elem
+    for C in (3 * seg - 100, 40 * seg + 77):
+        x = _input(n, n * C, dtype, cuda).reshape(n, n, C)
+        for op in OPS:
+            want = pr.ring_reduce_scatter_plain(x, op)
+            for stripes in (None, 3):
+                for cluster in (None, False):
+                    got = _launched_once(pr.RS, lambda: pr._rs_launch(
+                        x, op, stripes=stripes, cluster=cluster))
+                    assert torch.equal(_bits(got), _bits(want)), \
+                        (n, C, op, stripes, cluster)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["ring", "tree", "bcast", "rs", "rs-l2"])
 def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
                                                                 kernel):
     """50 back-to-back launches at n = 8 give the same bits, every flag
-    back at 0: a race on a slot or a segment flag would show."""
+    back at 0 after each: a race on a slot or a segment flag would
+    show."""
     if kernel == "ring":
         x = _input(8, 8 * 8 * pr.STRIPE_COLS, "float32", cuda)
         run, counter = (lambda: pr.allreduce_block(x, "sum")), pr.RING
-    else:
+    elif kernel == "tree":
         x = _input(8, 3 * pr.TREE_SEG_COLS + 5000, "float32", cuda)
         run, counter = (lambda: pr.reduce_block(x, "sum", 3)), \
             pr.TREE_REDUCE
+    elif kernel == "bcast":
+        x = _input(8, 3 * pr.BCAST_SEG_BYTES // 4 + 5000, "float32", cuda)
+        run, counter = (lambda: pr.tree_bcast(x, 3)), pr.TREE_BCAST
+    else:  # the reduce-scatter's buffers in shared memory, or in L2
+        C = 40 * pr.RS_SEG_BYTES // 4 + 77
+        x = _input(8, 8 * C, "float32", cuda).reshape(8, 8, C)
+        cluster = kernel == "rs"
+        run, counter = (lambda: pr._rs_launch(x, "sum", cluster=cluster)), \
+            pr.RS
     first = _launched_once(counter, run)
-    outs = [run() for _ in range(50)]
-    torch.cuda.synchronize()
-    assert int(counter.last_sems.abs().sum()) == 0
-    assert all(torch.equal(o, first) for o in outs)
+    for _ in range(50):
+        assert torch.equal(_launched_once(counter, run), first)
 
 
 @pytest.mark.gpu
