@@ -19,11 +19,12 @@ cores, float32 on the CUDA cores, the causal mask's hidden folds
 skipped and the causal ring's thread blocks split by fold work). The
 tree reduce and the tree bcast are segmented "get" trees (a rank reads
 its children's, or its parent's, finished row segment by segment after
-that segment's flag, every round at once); the whole-payload ring and
-the reduce-scatter fold and forward in one pass per step, the
-reduce-scatter in a wavefront over segments, one thread-block cluster
-per stripe up to 8 ranks with its buffers in the reading rank's shared
-memory (in L2 beyond).
+that segment's flag, every round at once); the whole-payload ring, the
+bidirectional ring (in each direction), the reduce-scatter and the
+table kernel fold and forward in one pass per step, the reduce-scatter
+and the table kernel in a wavefront over segments, one thread-block
+cluster per stripe up to 8 ranks with their buffers in the reading
+rank's shared memory (in L2 beyond).
 
 Phases (any failure raises and exits non-zero):
 
@@ -34,7 +35,9 @@ Phases (any failure raises and exits non-zero):
    the card, bitwise, at small and ragged sizes, every flag back at 0:
    the allreduce kernels for int32/float32/bfloat16 x
    sum/max/min/prod (ring and chunked at n in {2, 3, 8}, recursive
-   doubling at n in {2, 8}, the bidirectional ring at n in {2, 3, 8});
+   doubling at n in {2, 8}, the bidirectional ring at n in {2, 3, 8},
+   also at four (stripes, threads) plans, on halves that are not whole
+   16-byte vectors and at 1 MiB per rank);
    reduce-scatter and tree reduce likewise at n in {2, 3, 8} (the trees
    at roots 0 and n-1; the tree reduce also over four of its segments,
    the last ragged; the reduce-scatter also at blocks of fewer segments
@@ -47,8 +50,11 @@ Phases (any failure raises and exits non-zero):
    at odd row widths (their element-sized copies); ``sched_table`` on
    eight programs (ring, ring with a non-identity order, segmented
    ring at 2 and 4 segments, reduce-scatter, allgather, a 3-member
-   ``fuse_schedules``, a ``fuse_window``) at n in {2, 3, 4, 8}, every
-   op and dtype, ragged chunks; ``selfdma_chunked`` at 1, 3 and 8
+   ``fuse_schedules``, a ``fuse_window``) at n in {2, 3, 4, 8, 12},
+   every op and dtype, ragged chunks, and with one stripe over fewer
+   segments than a stage's rounds, as many and more (the last ragged) at
+   n in {3, 8, 12}, its buffers in a cluster's shared memory and in L2
+   (in L2 only at n = 12); ``selfdma_chunked`` at 1, 3 and 8
    segments in six dtypes; ``quant_allreduce`` (SUM) at n in {2, 3, 8}
    for float32 and bfloat16 inputs at three row counts each, ragged,
    with stripes that do not divide the rows. Then, with
@@ -159,7 +165,9 @@ Phases (any failure raises and exits non-zero):
    ``x.sum(0, keepdim=True).expand_as(x).contiguous()`` is timed beside
    it as ``exact_sum_ms``, for context, with the two TunedColl route
    p50s of the quant path (``quant_ring_ms``, ``exact_route_ms``).
-   ``sched_table``'s row is
+   ``ring_allreduce_bidir``'s and ``sched_table``'s rows carry the plan
+   their timed launches ran (``plan``: stripes, threads, and for the
+   table its segments and the buffers' memory). ``sched_table``'s row is
    the segmented-ring program at 1 GiB per rank; its ``also`` list
    holds the ring program at 1 MiB (beside ``ring_allreduce``, the same
    protocol hard-coded) and the reduce-scatter program at 1 GiB sent
@@ -247,6 +255,10 @@ SOURCES = {
     "ring_attention": "ompi_tpu/coll/pallas_attn.py:39",
 }
 SCHED_KERNELS = ("sched_table", "selfdma_chunked")
+# (stripes, threads) of the bidirectional ring's extra kernel-vs-plain
+# cases: one block per rank and direction up to 2 x 8 x 8 blocks of up
+# to 1024 threads, which 132 SMs hold at once.
+BIDIR_PLANS = ((1, 128), (3, 256), (8, 512), (8, 1024))
 # The sched path's forced names: allreduce at 1 MiB and 1 GiB per rank,
 # reduce_scatter_block at 1 GiB sent per rank.
 SCHED_FORCED = (("sched_pallas_ring", MIB), ("sched_pallas_ring_seg", GIB),
@@ -456,6 +468,32 @@ def kernel_vs_plain(pr, gen) -> None:
         f"segments, buffers in shared memory and in L2: {checked} cases "
         f"bitwise equal, all semaphores 0 ({time.time() - t0:.1f} s)")
 
+    # The bidirectional ring at other plans (stripes x threads, as the
+    # sweep takes them, the plan's among them) and on halves that are not
+    # whole 16-byte vectors (35 columns), at the main path's 1 MiB too.
+    t0 = time.time()
+    checked = 0
+    for n in (2, 3, 8):
+        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+            for cols in (70, 1280) + ((MIB // 4 // n,) if n == N else ()):
+                if cols > 1280 and dtype != torch.float32:
+                    continue
+                x = random_rank_major((n, n, cols), dtype, gen)
+                for op in ("sum", "max", "min", "prod"):
+                    want = pr.ring_allreduce_bidir_plain(x, op)
+                    for stripes, threads in BIDIR_PLANS:
+                        got = pr._bidir_launch(x, op, stripes, threads)
+                        torch.cuda.synchronize()
+                        check_sems(KERNELS["ring_allreduce_bidir"])
+                        equal_or_raise(got, want,
+                                       f"ring_allreduce_bidir n={n} {dtype} "
+                                       f"{op} cols={cols} {stripes} x "
+                                       f"{threads}")
+                        checked += 1
+    log(f"[kernel-vs-plain] ring_allreduce_bidir at {len(BIDIR_PLANS)} plans "
+        f"and ragged halves: {checked} cases bitwise equal, all semaphores "
+        f"0 ({time.time() - t0:.1f} s)")
+
     # The data movers copy bytes: other element sizes, at odd row widths
     # (no lane padding: the wrappers directly), take the element-sized
     # copies instead of the 16-byte vectors.
@@ -515,7 +553,7 @@ def sched_kernel_vs_plain(pr, gen) -> None:
 
     t0 = time.time()
     checked = 0
-    for n in (2, 3, 4, 8):
+    for n in (2, 3, 4, 8, 12):
         for name, sched in table_programs(ir, pl, n).items():
             prog = pl.analyze(sched)
             for dtype in (torch.int32, torch.float32, torch.bfloat16):
@@ -535,6 +573,40 @@ def sched_kernel_vs_plain(pr, gen) -> None:
                     checked += 1
     log(f"[kernel-vs-plain] sched_table: {checked} cases bitwise equal, "
         f"all semaphores 0 ({time.time() - t0:.1f} s)")
+    # One stripe over fewer segments than a stage's rounds, as many and
+    # more (the last ragged), the buffers in a cluster's shared memory and
+    # in L2 (beyond 8 ranks in L2 only).
+    t0 = time.time()
+    checked = 0
+    for n in (3, 8, 12):
+        for name, sched in table_programs(ir, pl, n).items():
+            prog = pl.analyze(sched)
+            rounds = max(length for _, length in pl._stages(prog))
+            for dtype in (torch.int32, torch.float32, torch.bfloat16):
+                seg = 256 // (2 if dtype == torch.bfloat16 else 4)
+                for segs in (2, rounds, rounds + 3):
+                    data = random_rank_major(
+                        (n, prog.nchunks, seg * segs - 5), dtype, gen)
+                    want = pl.sched_table_plain(prog, data, "max",
+                                                seg_cols=seg)
+                    for cluster in (True, False) if n <= 8 else (False,):
+                        got = pl._table_launch(
+                            prog, data, "max", stripes=1, threads=128,
+                            seg_bytes=256, cluster=cluster)
+                        torch.cuda.synchronize()
+                        check_sems(KERNELS["sched_table"])
+                        plan = KERNELS["sched_table"].last_plan
+                        if plan["segments"] != segs:
+                            raise AssertionError(f"sched_table: {plan}, "
+                                                 f"not {segs} segments")
+                        equal_or_raise(got, want,
+                                       f"sched_table {name} n={n} {dtype} "
+                                       f"one stripe, {segs} segments, "
+                                       f"cluster={cluster}")
+                        checked += 1
+    log(f"[kernel-vs-plain] sched_table with one stripe over segments, "
+        f"buffers in shared memory and in L2: {checked} cases bitwise "
+        f"equal, all semaphores 0 ({time.time() - t0:.1f} s)")
     t0 = time.time()
     checked = 0
     for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.float64,
@@ -1755,6 +1827,9 @@ def measure(pr, gen, errs, launches) -> list:
                 f"{plan['stripes']} stripes x {plan['threads']} threads per "
                 f"rank, segments of {plan['segment_bytes']} B, buffers "
                 f"{plan['buffer_bytes']} B in {plan['buffers']}")
+        if kernel in ("ring_allreduce_bidir", "sched_table"):
+            row["plan"] = plan
+            log(f"[plan] {kernel} at {nbytes} B/rank: {plan}")
         if kernel == "sched_table":
             row["program"] = "segmented_ring(8, 2)"
             row["also"] = []
@@ -1762,6 +1837,7 @@ def measure(pr, gen, errs, launches) -> list:
                 fn, plain, library, bound = sched_case(program, size, gen)
                 also = {"program": program, "bytes_per_rank": size,
                         "ms": p50_ms(fn, KERNEL_REPS),
+                        "plan": KERNELS[kernel].last_plan,
                         "plain_ms": p50_ms(plain, 3 if size >= GIB else 10),
                         "bound_ms": bound / HBM_BYTES_PER_S * 1e3,
                         "bound_by": "bytes",

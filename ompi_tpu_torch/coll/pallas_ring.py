@@ -35,7 +35,9 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
   parent's finished row after that segment's flag, every round at once.
 - ``ring_allreduce_bidir`` (``_allreduce_bidir_kernel``): the ring in
   both directions at once, half of every ring block each, as two
-  independent groups of thread blocks with their own slots and flags.
+  independent groups of thread blocks with their own slots and flags,
+  each running ``ring_allreduce``'s fold-then-forward body
+  (``simulate_ring_bidir``).
 - ``ring_alltoall`` (``_alltoall_kernel``): pairwise exchange, one flag
   per step per receiver; it moves bytes, so it takes any dtype.
 - ``linear_gather`` (``_gather_kernel``) and ``linear_scatter``
@@ -65,7 +67,8 @@ is forwarded. The port credits a slot right after the send FROM it
 interleavings; the tests show the reference's placement fails there and
 the port's does not.
 
-Plain versions: ``simulate_ring``/``simulate_rd``/``simulate_tree_*``/
+Plain versions: ``simulate_ring``/``simulate_ring_fused``/
+``simulate_ring_rs_fused``/``simulate_rd``/``simulate_tree_*``/
 ``simulate_ring_bidir``/``simulate_alltoall``/``simulate_gather``/
 ``simulate_scatter``/``simulate_ppermute`` run the same slot and flag
 schedule rank by rank on tensors (what ``pallas_lower.simulate`` is to
@@ -134,6 +137,13 @@ RING_NSEM = 5
 #: Bytes of a ring block that one thread block of ``ring_allreduce``
 #: takes at least (``_ring_plan``).
 RING_STRIPE_BYTES = 8192
+#: Bytes of a half ring block that one thread block of
+#: ``ring_allreduce_bidir`` takes at least, and its threads per block
+#: (``_bidir_plan``). The sweep at 1 MiB per rank, n = 8, on an NVIDIA
+#: H100 (PERF.md, tools/bidir_table_check.py): 8 stripes x 512 threads
+#: 0.0557 ms, the best 16 x 256 (two blocks per SM) 0.0545, every shape
+#: of 8 stripes or more 0.054-0.059, 2 stripes 0.068-0.095.
+BIDIR_STRIPE_BYTES, BIDIR_THREADS = 8192, 512
 #: Columns of a tree-reduce segment: a child publishes its row segment
 #: by segment, so its parent folds segment i while it works on later ones.
 TREE_SEG_COLS = 1 << 14
@@ -200,19 +210,31 @@ _PAUSE = (None, 0)
 
 def _drive(programs: list, sems: dict, rng: Optional[random.Random]) -> None:
     """Run rank programs to completion. A program is a generator that
-    yields ``(flag key, count)`` when it waits; a wait is satisfied when
-    the flag is at least count, and then consumes count. Every wait is a
+    yields ``(flag key, count)`` when it waits, or a list of such pairs
+    to wait for all of them (as a kernel's lanes wait, one flag each,
+    before one block barrier); a wait is satisfied when each flag is at
+    least its count, and then consumes the counts. Every wait is a
     scheduling point: with ``rng`` None the ranks take turns in ring
     order (lock-step), with a ``random.Random`` a ready rank is picked
     at random. A copy or a signal between two waits is atomic, as a DMA
     is at its start; a program yields ``_PAUSE`` where another rank may
-    run between two of its actions without a wait."""
+    run between two of its actions without a wait. The flags of a list
+    wait must have no other waiter: a flag found high enough is not
+    checked again until its waiter runs."""
     nranks = len(programs)
-    waiting = {r: None for r in range(nranks)}
+    waiting: dict = {r: [] for r in range(nranks)}
+    met = dict.fromkeys(waiting, 0)  # a list wait's flags found high enough
     last = nranks - 1
     while waiting:
-        ready = [r for r, w in waiting.items()
-                 if w is None or sems[w[0]] >= w[1]]
+        ready = []
+        for r, w in waiting.items():
+            i, n_w = met[r], len(w)
+            while i < n_w and sems[w[i][0]] >= w[i][1]:
+                i += 1
+            if n_w > 1:
+                met[r] = i
+            if i == n_w:
+                ready.append(r)
         if not ready:
             raise RuntimeError(f"protocol deadlock, ranks waiting on "
                                f"{waiting}")
@@ -221,11 +243,12 @@ def _drive(programs: list, sems: dict, rng: Optional[random.Random]) -> None:
         else:
             r = rng.choice(ready)
         last = r
-        w = waiting[r]
-        if w is not None:
-            sems[w[0]] -= w[1]
+        for key, count in waiting[r]:
+            sems[key] -= count
+        met[r] = 0
         try:
-            waiting[r] = next(programs[r])
+            w = next(programs[r])
+            waiting[r] = w if isinstance(w, list) else [w]
         except StopIteration:
             del waiting[r]
 
@@ -345,59 +368,83 @@ def simulate_ring(x: torch.Tensor, op: Optional[Op],
     return out, _residue(sems)
 
 
-def simulate_ring_fused(blocks: torch.Tensor, op: Op, *,
-                        credit: str = "after_read",
-                        rng: Optional[random.Random] = None):
-    """Run ``ring_allreduce``'s fold-then-forward ring on (n, n, C)
-    blocks. Rank me takes 2(n-1) arrivals from its left neighbour; arrival
-    k lands in its slot k % 2, except arrival 0, the left neighbour's
-    block me-2, which it reads straight from that neighbour's input. For
-    each arrival it waits for the slot's flag (and, before its third and
-    later sends, for the right neighbour's credit on the slot it sends
-    into), then makes one pass: at a reduce-scatter step (k < n-1) it
-    folds ``combine(arrival, x[me][me-k-2])``, the JAX package's operands
-    in its order, writing out[me][me] at the last one; at an allgather
-    step it stores the arrival to out[me][me-(k-n+1)-1]. The pass stores
-    its result straight into the right neighbour's slot (k + 1) % 2
-    (every step but the last) and signals it; then it credits its own
-    slot back to the left neighbour (arrivals 1 .. 2n-5, whose slots the
-    left fills again). ``credit`` "before_read" credits the slot before
-    the pass that reads it: the negative control. Returns (out, residue)
-    as ``simulate_ring`` does."""
-    if credit not in ("after_read", "before_read"):
-        raise ArgumentError(f"unknown credit placement {credit!r}")
-    n, C = _ring_blocks(blocks, True)
+def _fused_ring_programs(blocks: torch.Tensor, out: torch.Tensor, op: Op,
+                         sems: dict, *, credit: str, direction: int,
+                         tag: tuple = ()) -> list:
+    """The n rank programs of ``ring_allreduce``'s fold-then-forward ring
+    over ``blocks`` into ``out`` (either may be a column view), with its
+    own comm slots and with flags keyed (rank, *tag, name, slot).
+    ``direction`` +1 sends to rank me+1, -1 to rank me-1, with the block
+    indices mirrored (``blk = me - direction·(k + 2)``, as in the JAX
+    package's bidirectional kernel)."""
+    n, C = blocks.shape[0], blocks.shape[-1]
     nsteps = 2 * (n - 1)
-    out = torch.zeros_like(blocks)
     comm = blocks.new_zeros((n, 2, C))
-    sems: dict = collections.defaultdict(int)
+    d = direction
 
     def rank(me):
-        left, right = (me - 1) % n, (me + 1) % n
+        left, right = (me - d) % n, (me + d) % n
         for k in range(nsteps):
             send, credit_slot = k < nsteps - 1, 1 <= k <= nsteps - 3
             if k:
-                yield (me, "recv", k % 2), 1
+                yield (me,) + tag + ("recv", k % 2), 1
             if send and k >= 2:
-                yield (me, "cap", (k + 1) % 2), 1
+                yield (me,) + tag + ("cap", (k + 1) % 2), 1
             if credit == "before_read" and credit_slot:
-                sems[left, "cap", k % 2] += 1
+                sems[(left,) + tag + ("cap", k % 2)] += 1
                 yield _PAUSE
-            arrival = blocks[left, (me - 2) % n] if k == 0 else comm[me, k % 2]
+            arrival = (blocks[left, (me - 2 * d) % n] if k == 0
+                       else comm[me, k % 2])
             if k < n - 1:
-                val = op.combine(arrival, blocks[me, (me - k - 2) % n])
+                val = op.combine(arrival, blocks[me, (me - d * (k + 2)) % n])
                 if k == n - 2:
                     out[me, me] = val
             else:
                 val = arrival.clone()
-                out[me, (me - (k - n + 1) - 1) % n] = val
+                out[me, (me - d * (k - n + 2)) % n] = val
             if send:
                 comm[right, (k + 1) % 2] = val
-                sems[right, "recv", (k + 1) % 2] += 1
+                sems[(right,) + tag + ("recv", (k + 1) % 2)] += 1
             if credit == "after_read" and credit_slot:
-                sems[left, "cap", k % 2] += 1
+                sems[(left,) + tag + ("cap", k % 2)] += 1
 
-    _drive([rank(r) for r in range(n)], sems, rng)
+    return [rank(r) for r in range(n)]
+
+
+def _check_fused_credit(credit: str) -> None:
+    if credit not in ("after_read", "before_read"):
+        raise ArgumentError(f"unknown credit placement {credit!r}")
+
+
+def simulate_ring_fused(blocks: torch.Tensor, op: Op, *,
+                        credit: str = "after_read", direction: int = 1,
+                        rng: Optional[random.Random] = None):
+    """Run ``ring_allreduce``'s fold-then-forward ring on (n, n, C)
+    blocks. Rank me takes 2(n-1) arrivals from its left neighbour (its
+    right one for ``direction`` -1, with the block indices mirrored);
+    arrival k lands in its slot k % 2, except arrival 0, the left
+    neighbour's block me-2, which it reads straight from that neighbour's
+    input. For each arrival it waits for the slot's flag (and, before its
+    third and later sends, for the right neighbour's credit on the slot
+    it sends into), then makes one pass: at a reduce-scatter step (k <
+    n-1) it folds ``combine(arrival, x[me][me-k-2])``, the JAX package's
+    operands in its order, writing out[me][me] at the last one; at an
+    allgather step it stores the arrival to out[me][me-(k-n+1)-1]. The
+    pass stores its result straight into the right neighbour's slot (k +
+    1) % 2 (every step but the last) and signals it; then it credits its
+    own slot back to the left neighbour (arrivals 1 .. 2n-5, whose slots
+    the left fills again). ``credit`` "before_read" credits the slot
+    before the pass that reads it: the negative control. Returns (out,
+    residue) as ``simulate_ring`` does."""
+    _check_fused_credit(credit)
+    if direction not in (1, -1):
+        raise ArgumentError(f"ring direction must be 1 or -1, got "
+                            f"{direction}")
+    _ring_blocks(blocks, True)
+    out = torch.zeros_like(blocks)
+    sems: dict = collections.defaultdict(int)
+    _drive(_fused_ring_programs(blocks, out, op, sems, credit=credit,
+                                direction=direction), sems, rng)
     return out, _residue(sems)
 
 
@@ -431,8 +478,7 @@ def simulate_ring_rs_fused(blocks: torch.Tensor, op: Op, *,
     ends at 0. ``credit`` "before_read" credits before the passes: the
     negative control. Returns (out (n, W), residue) as ``simulate_ring``
     does."""
-    if credit not in ("after_read", "before_read"):
-        raise ArgumentError(f"unknown credit placement {credit!r}")
+    _check_fused_credit(credit)
     n, W = _ring_blocks(blocks, True)
     seg = W if seg_cols is None else seg_cols
     if seg <= 0:
@@ -475,28 +521,42 @@ def simulate_ring_rs_fused(blocks: torch.Tensor, op: Op, *,
     return out, _residue(sems)
 
 
-def simulate_ring_bidir(blocks: torch.Tensor, op: Op, *, credit: str = "port",
+def simulate_ring_bidir(blocks: torch.Tensor, op: Op, *,
+                        credit: str = "after_read",
                         rng: Optional[random.Random] = None,
                         shared_flags: bool = False):
     """Run the bidirectional ring on (n, n, C) blocks, C even: columns
-    [0, C/2) of every block go round the ring to the right, [C/2, C) to
-    the left, as two independent rings with their own comm slots and
-    flags (``shared_flags`` makes the two share one set of flags: the
+    [0, C/2) of every block go round ``simulate_ring_fused``'s ring to
+    the right, [C/2, C) round it to the left (``direction`` -1), two
+    independent rings with their own comm slots and flags, at the same
+    time. ``shared_flags`` makes the two share one set of flags: the
     negative control, since at n = 2 both directions signal the same
-    neighbour). Returns (out, residue) as ``simulate_ring`` does."""
-    _check_credit(credit)
+    neighbour. ``credit`` "after_read" is the kernel's placement and
+    "before_read" the fused ring's negative control; "reference" runs
+    the JAX package's two-pass rings with its placement (a post-seed
+    credit, then a credit right after filling a slot: the race ROADMAP
+    Queue 3 records). Returns (out, residue) as ``simulate_ring``
+    does."""
+    if credit not in ("after_read", "before_read", "reference"):
+        raise ArgumentError(f"unknown credit placement {credit!r}")
     n, C = _ring_blocks(blocks, True)
     if C % 2:
         raise ArgumentError(f"bidirectional ring needs even blocks, got {C}")
     half = C // 2
-    out = torch.empty_like(blocks)
+    out = torch.zeros_like(blocks)
     sems: dict = collections.defaultdict(int)
     programs = []
     for d, cols in ((1, slice(0, half)), (-1, slice(half, C))):
-        programs += _ring_programs(
-            blocks[..., cols], out[..., cols], op, half, sems,
-            segmented=False, credit=credit, phase="both", direction=d,
-            tag=() if shared_flags else (d,))
+        tag = () if shared_flags else (d,)
+        if credit == "reference":
+            programs += _ring_programs(
+                blocks[..., cols], out[..., cols], op, half, sems,
+                segmented=False, credit=credit, phase="both", direction=d,
+                tag=tag)
+        else:
+            programs += _fused_ring_programs(
+                blocks[..., cols], out[..., cols], op, sems, credit=credit,
+                direction=d, tag=tag)
     _drive(programs, sems, rng)
     return out, _residue(sems)
 
@@ -942,18 +1002,20 @@ _ARGTYPES = {
     # x, out, sems, n, blocks per rank, threads, row bytes, seg bytes,
     # n_segs, root, dev, stream
     "tree_bcast": [_P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _P],
-    # x, out, comm, sems, n, stripes, W, half, op, dtype, dev, stream
-    "ring_allreduce_bidir": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I,
-                             _P],
+    # x, out, comm, sems, n, stripes, threads, W, half, op, dtype, dev,
+    # stream
+    "ring_allreduce_bidir": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I,
+                             _I, _P],
     # x, out, comm, sems, n, stripes, W, elem size, dev, stream
     "ring_alltoall": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
     # x, out, comm, sems, n, stripes, L, root, elem size, dev, stream
     "linear_gather": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
     "linear_scatter": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
-    # x, out, comm, sems, n, stripes, tables, info, rounds, nchunks,
-    # chunk, kind, op, dtype, dev, stream
-    "sched_table": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _LL, _I, _I,
-                    _I, _I, _P],
+    # x, out, comm, sems, n, stripes, threads, tables, info, rounds,
+    # nchunks, chunk bytes, seg vectors, n_segs, K, cluster, kind, op,
+    # dtype, dev, stream
+    "sched_table": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _LL, _LL,
+                    _I, _I, _I, _I, _I, _I, _I, _P],
     # x, out, comm, blocks, seg bytes, n_segs, elem size, dev, stream
     "selfdma_chunked": [_P, _P, _P, _I, _LL, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, rows, dev, stream
@@ -1004,28 +1066,23 @@ def _stripes(n: int, cols: int, sm_count: int,
 
 def _launch(name: str, counter: KernelCounter, x: torch.Tensor,
             out_shape: tuple, cols: int, slots: int, nsem: int,
-            scalars: tuple, codes: tuple, dirs: int = 1,
-            out: Optional[torch.Tensor] = None,
-            slot_elems=None) -> torch.Tensor:
-    """Launch csrc/<name>.cu on x into a new ``out_shape`` tensor (or
-    into ``out``, which the kernel updates). Each rank is striped over
-    blocks of ``cols`` columns, in ``dirs`` groups of n x stripes blocks
-    (two for the bidirectional ring); the comm scratch holds ``slots``
-    stripe-wide slots per stripe (the kernel lays them out; a slot is
-    ``slot_elems(sw)`` elements for a stripe sw elements wide where
-    that is not sw) and the flags are (dirs, n, stripes, nsem) int32,
-    zeroed here on every launch. ``codes`` are the op and dtype codes (or the element size)
-    the C entry takes after ``scalars``."""
+            scalars: tuple, codes: tuple, slot_elems=None) -> torch.Tensor:
+    """Launch csrc/<name>.cu on x into a new ``out_shape`` tensor. Each
+    rank is striped over blocks of ``cols`` columns; the comm scratch
+    holds ``slots`` stripe-wide slots per stripe (the kernel lays them
+    out; a slot is ``slot_elems(sw)`` elements for a stripe sw elements
+    wide where that is not sw) and the flags are (n, stripes, nsem)
+    int32, zeroed here on every launch. ``codes`` are the op and dtype
+    codes (or the element size) the C entry takes after ``scalars``."""
     cap = require_kernel_device(x)
     n = x.shape[0]
-    stripes = _stripes(n * dirs, cols, cap.sm_count)
+    stripes = _stripes(n, cols, cap.sm_count)
     sw = -(-cols // stripes)
     x = x.contiguous()
-    if out is None:
-        out = x.new_empty(out_shape)
+    out = x.new_empty(out_shape)
     comm = x.new_empty(slots * stripes
                        * (sw if slot_elems is None else slot_elems(sw)))
-    sems = torch.zeros(dirs * n * stripes * nsem, dtype=torch.int32,
+    sems = torch.zeros(n * stripes * nsem, dtype=torch.int32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _entry(name)(x.data_ptr(), out.data_ptr(), comm.data_ptr(),
@@ -1411,9 +1468,58 @@ def ring_allreduce_bidir(blocks: torch.Tensor, op) -> torch.Tensor:
         raise ArgumentError(f"bidirectional ring needs even blocks, got {C}")
     if not blocks.is_cuda:
         return ring_allreduce_bidir_plain(blocks, op)
-    return _launch("ring_allreduce_bidir", BIDIR, blocks, blocks.shape,
-                   C // 2, 2 * 2 * n, RING_NSEM, (C, C // 2),
-                   _codes(op, blocks.dtype), dirs=2)
+    return _bidir_launch(blocks, op)
+
+
+def _bidir_plan(n: int, half_bytes: int, sm_count: int) -> tuple[int, int]:
+    """(stripes, threads per block) of ``ring_allreduce_bidir`` for n
+    ranks of ring blocks whose halves take ``half_bytes`` bytes: each
+    direction's n x stripes blocks as ``_ring_plan`` stripes one ring,
+    over half the SMs, so that the two directions' 2 x n x stripes blocks
+    keep one block per SM under the cooperative launch."""
+    return (_stripes(2 * n, half_bytes, sm_count, BIDIR_STRIPE_BYTES),
+            BIDIR_THREADS)
+
+
+def _bidir_launch(blocks: torch.Tensor, op, stripes: Optional[int] = None,
+                  threads: Optional[int] = None,
+                  defines: tuple = ()) -> torch.Tensor:
+    """Launch csrc/ring_allreduce_bidir.cu on (n, n, C) CUDA blocks, C
+    even, with the plan's stripes and threads (or the ones given: the
+    measurement tools' sweep; ``defines`` names a probe build). Each half
+    is padded to whole 16-byte vectors only when it is not already (the
+    main path's halves are 128-lane multiples). ``BIDIR.last_plan``
+    records what was launched."""
+    n, C = _ring_blocks(blocks, True)
+    codes = _codes(op_lookup(op), blocks.dtype)
+    cap = require_kernel_device(blocks)
+    half = C // 2
+    vec = 16 // blocks.element_size()
+    hp = -(-half // vec) * vec  # halves of whole 16-byte vectors
+    x = blocks.contiguous()
+    if hp != half:
+        x = torch.cat([F.pad(x[..., :half], (0, hp - half)),
+                       F.pad(x[..., half:], (0, hp - half))], dim=-1)
+    x = _aligned(x, 2 * hp)
+    plan = _bidir_plan(n, hp * blocks.element_size(), cap.sm_count)
+    stripes, threads = stripes or plan[0], threads or plan[1]
+    slot_bytes = -(-hp // vec // stripes) * 16
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    comm = _scratch(x, stream, "comm", 2 * n * stripes * 2 * slot_bytes)
+    sems = _scratch(x, stream, "flags", 2 * n * stripes * 4)
+    err = _entry("ring_allreduce_bidir", defines)(
+        x.data_ptr(), out.data_ptr(), comm.data_ptr(), sems.data_ptr(), n,
+        stripes, threads, 2 * hp, hp, *codes, x.device.index or 0, stream)
+    if err:
+        raise KernelError(f"ring_allreduce_bidir launch failed: CUDA error "
+                          f"{err}")
+    BIDIR.launched(sems, {"stripes": stripes, "threads": threads,
+                          "blocks": 2 * n * stripes,
+                          "half_bytes": hp * blocks.element_size()})
+    if hp != half:
+        out = torch.cat([out[..., :half], out[..., hp:hp + half]], dim=-1)
+    return out
 
 
 def ring_alltoall(x: torch.Tensor) -> torch.Tensor:

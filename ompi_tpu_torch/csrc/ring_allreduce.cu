@@ -16,8 +16,10 @@
 // threads) and two wait()s that slept between polls.
 //
 // What this design does about it:
-// - One pass per step: a rank waits for the arrival in its slot,
-//   computes combine(arrival, x[blk]) (the reference's operands in its
+// - One pass per step (ring_common.cuh's ring_fused, which the
+//   bidirectional ring runs in each direction): a rank waits for the
+//   arrival in its slot, computes combine(arrival, x[blk]) (the
+//   reference's operands in its
 //   order, pallas_ring.py:253, so the bits stay), and stores the result
 //   straight into the right neighbour's next slot; at the last
 //   reduce-scatter step also into out[me][me]. An allgather step stores
@@ -43,96 +45,18 @@
 
 namespace ompi_ring {
 
-constexpr int kRingUnroll = 4;
-// Flags per (rank, stripe): recv[2] (an arrival in slot 0/1), cap[2]
-// (the right neighbour's credit on its slot 0/1).
-constexpr int kRingFlags = 4;
-
+// One ring of ring_common.cuh's fold-then-forward body over whole ring
+// blocks of C elements.
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
     ring_allreduce_kernel(const T* __restrict__ x, T* __restrict__ out,
                           T* comm, int* sems, int n, int stripes,
                           long long C) {
   constexpr long long E = 16 / sizeof(T);
-  const int r = blockIdx.x / stripes;
-  const int s = blockIdx.x % stripes;
-  const int left = (r - 1 + n) % n, right = (r + 1) % n;
-  const long long cv = C / E;                       // vectors per block
-  const long long sv = (cv + stripes - 1) / stripes;  // per stripe
-  const long long v0 = (long long)s * sv;
-  const long long vn = v0 < cv ? (cv - v0 < sv ? cv - v0 : sv) : 0;
-  const uint4* xv = reinterpret_cast<const uint4*>(x);
-  uint4* ov = reinterpret_cast<uint4*>(out) + (long long)r * n * cv + v0;
-  uint4* cm = reinterpret_cast<uint4*>(comm);
-  auto slot = [&](int rank, int k) {
-    return cm + (((long long)rank * stripes + s) * 2 + (k & 1)) * sv;
-  };
-  auto xblk = [&](int rank, int blk) {
-    return xv + ((long long)rank * n + blk) * cv + v0;
-  };
-  int* mine = sems + (r * stripes + s) * kRingFlags;
-  int* to_right = sems + (right * stripes + s) * kRingFlags;
-  int* to_left = sems + (left * stripes + s) * kRingFlags;
-  const int nsteps = 2 * (n - 1);
-  const long long stride = (long long)kRingUnroll * blockDim.x;
-
-  OMPI_PROBE(0);
-  for (int k = 0; k < nsteps; ++k) {
-    const bool rs = k < n - 1;
-    const bool send = k < nsteps - 1;
-    const int blk = rs ? ((r - k - 2) % n + n) % n
-                       : ((r - (k - n + 1) - 1) % n + 2 * n) % n;
-    const uint4* own = xblk(r, blk);
-    // This step's x block, loaded before the waits.
-    uint4 xr[kRingUnroll];
-    if (rs) {
-#pragma unroll
-      for (int u = 0; u < kRingUnroll; ++u) {
-        const long long j = threadIdx.x + (long long)u * blockDim.x;
-        if (j < vn) xr[u] = own[j];
-      }
-    }
-    if (threadIdx.x == 0) {
-      if (k) acquire_flag(mine + (k & 1));
-      if (send && k >= 2) acquire_flag(mine + 2 + ((k + 1) & 1));
-    }
-    __syncthreads();
-    OMPI_PROBE(1 + 2 * k);
-    const uint4* src = k ? slot(r, k) : xblk(left, (r - 2 + 2 * n) % n);
-    uint4* dst = send ? slot(right, k + 1) : nullptr;
-    uint4* o = rs ? (k == n - 2 ? ov + (long long)r * cv : nullptr)
-                  : ov + (long long)blk * cv;
-    for (long long i = threadIdx.x; i < vn; i += stride) {
-      uint4 v[kRingUnroll];
-#pragma unroll
-      for (int u = 0; u < kRingUnroll; ++u) {
-        const long long j = i + (long long)u * blockDim.x;
-        if (j < vn) v[u] = k ? __ldcg(src + j) : src[j];
-      }
-      if (rs) {
-#pragma unroll
-        for (int u = 0; u < kRingUnroll; ++u) {
-          const long long j = i + (long long)u * blockDim.x;
-          if (j >= vn) continue;
-          if (i != threadIdx.x) xr[u] = own[j];
-          v[u] = combine_vec<T, OP>(v[u], xr[u]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kRingUnroll; ++u) {
-        const long long j = i + (long long)u * blockDim.x;
-        if (j >= vn) continue;
-        if (o) o[j] = v[u];
-        if (dst) __stcg(dst + j, v[u]);
-      }
-    }
-    block_publish();
-    if (threadIdx.x == 0) {
-      if (send) raise_flag(to_right + ((k + 1) & 1));
-      if (k >= 1 && k <= nsteps - 3) raise_flag(to_left + 2 + (k & 1));
-    }
-    OMPI_PROBE(2 + 2 * k);
-  }
+  ring_fused<T, OP>(reinterpret_cast<const uint4*>(x),
+                    reinterpret_cast<uint4*>(out),
+                    reinterpret_cast<uint4*>(comm), sems, n, stripes, C / E,
+                    C / E, 1, blockIdx.x);
 }
 
 }  // namespace ompi_ring

@@ -1,10 +1,11 @@
 // Shared pieces of the collective kernels: the combine ops, the flag
 // primitives that stand for the Pallas semaphores, L1-bypassing
-// loads/stores for comm slots, 16-byte vector combines, L2 cache
-// policies for data another block reads after a flag, the ring schedule
-// (allgather, or reduce-scatter then allgather, in either ring
-// direction), the byte copies of the data-movement kernels and the
-// cooperative launch.
+// loads/stores for comm slots, a thread-block cluster's shared memory
+// (its addresses, stores, flags and launch), 16-byte vector combines, L2
+// cache policies for data another block reads after a flag, the
+// fold-then-forward ring (either ring direction), the two-pass ring
+// schedule (allgather, or reduce-scatter then allgather), the byte
+// copies of the data-movement kernels and the cooperative launch.
 //
 // Ranks on one card. A rank-major buffer holds n virtual ranks in one
 // HBM; each rank is played by its own thread blocks (one per column
@@ -207,6 +208,120 @@ __device__ __forceinline__ void acquire_flag(int* flag, int v = 1) {
   f.fetch_sub(v, cuda::memory_order_relaxed);
 }
 
+// ---- a thread-block cluster's shared memory: buffers and flags that the
+// cluster's blocks reach over the SM-to-SM network, by 32-bit
+// shared-memory addresses (ring_reduce_scatter.cu, sched_table.cu). NVVM
+// refused cooperative groups' map_shared_rank on a flag pointer, so PTX. -----
+
+__device__ __forceinline__ unsigned cta_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// The same shared-memory word in the cluster's block `rank`.
+__device__ __forceinline__ unsigned peer_addr(unsigned a, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_peer(unsigned a, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};"
+               :
+               : "r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+// After a release fence (block_publish): add 1 to a peer block's flag.
+__device__ __forceinline__ void raise_peer(unsigned a) {
+  asm volatile("red.relaxed.cluster.shared::cluster.add.u32 [%0], 1;"
+               :
+               : "r"(a)
+               : "memory");
+}
+// acquire_flag on this block's own shared flag (v = 1).
+__device__ __forceinline__ void acquire_local(unsigned a) {
+  int polls = 0;
+  unsigned long long t0 = 0;
+  for (;;) {
+    unsigned v;
+    asm volatile("ld.acquire.cluster.shared::cta.u32 %0, [%1];"
+                 : "=r"(v)
+                 : "r"(a)
+                 : "memory");
+    if ((int)v >= 1) break;
+    if (++polls <= kHotPolls) continue;
+    if (t0 == 0) t0 = global_ns();
+    __nanosleep(32);
+    if (global_ns() - t0 > kDeadlockNs) __trap();
+  }
+  asm volatile("red.relaxed.cluster.shared::cta.add.u32 [%0], %1;"
+               :
+               : "r"(a), "r"(0xffffffffu)
+               : "memory");
+}
+// Whole block, every block of the cluster: a barrier whose arrival
+// releases and whose wait acquires.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::
+          : "memory");
+}
+
+// A launch of clusters of `size` <= 8 blocks (the portable cluster size)
+// of `threads`, on `stream`; sets the kernel's shared-memory attribute
+// first.
+inline cudaError_t cluster_config(const void* fn, int size, int threads,
+                                  size_t smem, int blocks, void* stream,
+                                  cudaLaunchConfig_t* cfg,
+                                  cudaLaunchAttribute* attr) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = size;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = (cudaStream_t)stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return err;
+}
+
+// Launch `blocks` blocks in clusters of `size` (see cluster_config).
+// Returns the CUDA error (0 on success).
+inline int launch_clusters(const void* fn, int size, int threads,
+                           size_t smem, int blocks, void** args, int device,
+                           void* stream) {
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (err == cudaSuccess)
+    err = cluster_config(fn, size, threads, smem, blocks, stream, &cfg,
+                         &attr);
+  if (err == cudaSuccess) err = cudaLaunchKernelExC(&cfg, fn, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of `size` blocks (`threads` each, `smem` bytes of
+// dynamic shared memory) the card holds at once, or minus the CUDA error.
+inline int max_clusters(const void* fn, int size, int threads, size_t smem,
+                        int device) {
+  cudaError_t err = cudaSetDevice(device);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (err == cudaSuccess)
+    err = cluster_config(fn, size, threads, smem, size, nullptr, &cfg, &attr);
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
 // ---- 16-byte vectors -------------------------------------------------------
 
 // One 32-bit word of a vector: its elements combined pairwise.
@@ -276,6 +391,118 @@ __device__ __forceinline__ void st_child(uint4* p, uint4 v,
       : "memory");
 }
 
+// ---- the fold-then-forward ring (ring_allreduce, ring_allreduce_bidir) ----
+//
+// One ring of 2(n-1) steps, one pass per step: at a reduce-scatter step k
+// (k < n-1) a rank folds combine(arrival, x[me][blk]) (the reference's
+// operands in its order, so the bits stay), writing out[me][me] at the
+// last one; at an allgather step it stores the arrival to out[me][blk].
+// Either way it stores the value straight into the next rank's slot
+// (k+1) % 2 (every step but the last). Step 0's arrival is the previous
+// rank's block me-2 of its input, read from x (x never changes): no seed
+// copy. A slot is credited back to the previous rank after the pass that
+// read it (arrivals 1 .. 2n-5, the ones whose slot it fills again);
+// every flag ends at 0. Handover: a block barrier, one thread's release
+// fence and relaxed increments (block_publish/raise_flag); waits poll hot
+// (acquire_flag); the step's x block is loaded before the waits.
+
+constexpr int kRingUnroll = 4;
+// Flags per (rank, stripe) of one ring: recv[2] (an arrival in slot
+// 0/1), cap[2] (the next rank's credit on its slot 0/1).
+constexpr int kRingFlags = 4;
+
+// Block b of the ring's n x stripes blocks plays rank r = b / stripes on
+// column stripe s = b % stripes. x and out are rank-major (n, n, row)
+// 16-byte vectors, offset to the ring's first column; the ring covers
+// `width` vectors of each ring block. `dir` 1 sends to rank r+1, -1 to
+// rank r-1, with the block indices mirrored (blk = r - dir(k+2), as the
+// reference's bidirectional kernel). comm: (n, stripes, 2, sv) vectors,
+// sv = ceil(width / stripes); sems: (n, stripes, kRingFlags).
+template <typename T, int OP>
+__device__ __forceinline__ void ring_fused(const uint4* __restrict__ x,
+                                           uint4* __restrict__ out,
+                                           uint4* comm, int* sems, int n,
+                                           int stripes, long long row,
+                                           long long width, int dir, int b) {
+  const int r = b / stripes;
+  const int s = b % stripes;
+  const int left = (r - dir + n) % n, right = (r + dir + n) % n;
+  const long long sv = (width + stripes - 1) / stripes;  // per stripe
+  const long long v0 = (long long)s * sv;
+  const long long vn = v0 < width ? (width - v0 < sv ? width - v0 : sv) : 0;
+  // Block index r - dir * k modulo n, for k >= 0.
+  auto ring_blk = [&](int k) { return ((r - dir * k) % n + n) % n; };
+  uint4* ov = out + (long long)r * n * row + v0;
+  auto slot = [&](int rank, int k) {
+    return comm + (((long long)rank * stripes + s) * 2 + (k & 1)) * sv;
+  };
+  auto xblk = [&](int rank, int blk) {
+    return x + ((long long)rank * n + blk) * row + v0;
+  };
+  int* mine = sems + (r * stripes + s) * kRingFlags;
+  int* to_right = sems + (right * stripes + s) * kRingFlags;
+  int* to_left = sems + (left * stripes + s) * kRingFlags;
+  const int nsteps = 2 * (n - 1);
+  const long long stride = (long long)kRingUnroll * blockDim.x;
+
+  OMPI_PROBE(0);
+  for (int k = 0; k < nsteps; ++k) {
+    const bool rs = k < n - 1;
+    const bool send = k < nsteps - 1;
+    const int blk = rs ? ring_blk(k + 2) : ring_blk(k - n + 2);
+    const uint4* own = xblk(r, blk);
+    // This step's x block, loaded before the waits.
+    uint4 xr[kRingUnroll];
+    if (rs) {
+#pragma unroll
+      for (int u = 0; u < kRingUnroll; ++u) {
+        const long long j = threadIdx.x + (long long)u * blockDim.x;
+        if (j < vn) xr[u] = own[j];
+      }
+    }
+    if (threadIdx.x == 0) {
+      if (k) acquire_flag(mine + (k & 1));
+      if (send && k >= 2) acquire_flag(mine + 2 + ((k + 1) & 1));
+    }
+    __syncthreads();
+    OMPI_PROBE(1 + 2 * k);
+    const uint4* src = k ? slot(r, k) : xblk(left, ring_blk(2));
+    uint4* dst = send ? slot(right, k + 1) : nullptr;
+    uint4* o = rs ? (k == n - 2 ? ov + (long long)r * row : nullptr)
+                  : ov + (long long)blk * row;
+    for (long long i = threadIdx.x; i < vn; i += stride) {
+      uint4 v[kRingUnroll];
+#pragma unroll
+      for (int u = 0; u < kRingUnroll; ++u) {
+        const long long j = i + (long long)u * blockDim.x;
+        if (j < vn) v[u] = k ? __ldcg(src + j) : src[j];
+      }
+      if (rs) {
+#pragma unroll
+        for (int u = 0; u < kRingUnroll; ++u) {
+          const long long j = i + (long long)u * blockDim.x;
+          if (j >= vn) continue;
+          if (i != threadIdx.x) xr[u] = own[j];
+          v[u] = combine_vec<T, OP>(v[u], xr[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRingUnroll; ++u) {
+        const long long j = i + (long long)u * blockDim.x;
+        if (j >= vn) continue;
+        if (o) o[j] = v[u];
+        if (dst) __stcg(dst + j, v[u]);
+      }
+    }
+    block_publish();
+    if (threadIdx.x == 0) {
+      if (send) raise_flag(to_right + ((k + 1) & 1));
+      if (k >= 1 && k <= nsteps - 3) raise_flag(to_left + 2 + (k & 1));
+    }
+    OMPI_PROBE(2 + 2 * k);
+  }
+}
+
 // ---- the ring schedule -----------------------------------------------------
 
 // Flag slots per (rank, stripe).
@@ -287,12 +514,8 @@ enum RingFlag { F_RECV = 0, F_CAP = 2, F_SEG = 4, RING_NSEM = 5 };
 enum RingPhase { PH_RS = 1, PH_AG = 2, PH_BOTH = 3 };
 
 // Block (r, s) of the grid plays rank r on column stripe s of every ring
-// block of W columns; a grid of several groups of n x stripes blocks
-// (the bidirectional ring's two directions) repeats the mapping in each
-// group, and the caller gives each group its own x, out, comm and sems.
-// `dir` 1 sends to rank r+1, -1 to rank r-1, with the block indices
-// mirrored (the reference's bidirectional kernel: blk = r - dir(step+2)).
-// Rank-major layouts: x is (n ranks, n blocks, W)
+// block of W columns and sends to rank r+1. Rank-major layouts: x is (n
+// ranks, n blocks, W)
 // and out the same for PH_BOTH; PH_AG reads x (n, W), each rank's own
 // block, and writes out (n, n, W). comm
 // is (n, stripes, 2, sw); sems is (n, stripes, RING_NSEM). The ring runs
@@ -310,16 +533,15 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
                                               T* __restrict__ out, T* comm,
                                               int* sems, int n, int stripes,
                                               long long W, long long seg,
-                                              int n_segs, int dir = 1) {
+                                              int n_segs) {
   constexpr bool kRS = (PHASE & PH_RS) != 0;
   static_assert((PHASE & PH_AG) != 0, "a ring schedule ends in allgather");
-  const int b = blockIdx.x % (n * stripes);
-  const int r = b / stripes;
-  const int s = b % stripes;
-  const int left = (r - dir + n) % n;
-  const int right = (r + dir + n) % n;
-  // Block index `r - dir * k` modulo n, for k >= 0.
-  auto ring_blk = [&](int k) { return ((r - dir * k) % n + n) % n; };
+  const int r = blockIdx.x / stripes;
+  const int s = blockIdx.x % stripes;
+  const int left = (r - 1 + n) % n;
+  const int right = (r + 1) % n;
+  // Block index `r - k` modulo n, for k >= 0.
+  auto ring_blk = [&](int k) { return ((r - k) % n + n) % n; };
   const long long sw = (seg + stripes - 1) / stripes;
   const long long c0 = (long long)s * sw;
   const long long cw = c0 < seg ? (seg - c0 < sw ? seg - c0 : sw) : 0;

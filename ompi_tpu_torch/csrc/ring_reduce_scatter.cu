@@ -84,63 +84,6 @@ __device__ __forceinline__ bool rs_forwards(int p, int n, int n_segs) {
   return p >= 0 && n > 2 && p - n_segs + 1 <= n - 3;
 }
 
-// ---- a cluster's shared memory: the buffers and flags of the cluster
-// form, reached by 32-bit shared-memory addresses ---------------------------
-
-__device__ __forceinline__ unsigned cta_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-// The same shared-memory word in the cluster's block `rank`.
-__device__ __forceinline__ unsigned peer_addr(unsigned a, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r)
-               : "r"(a), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_peer(unsigned a, uint4 v) {
-  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};"
-               :
-               : "r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-// Thread 0 only, after block_publish(): add 1 to a peer block's flag.
-__device__ __forceinline__ void raise_peer(unsigned a) {
-  asm volatile("red.relaxed.cluster.shared::cluster.add.u32 [%0], 1;"
-               :
-               : "r"(a)
-               : "memory");
-}
-// Thread 0 only: acquire_flag on this block's own shared flag.
-__device__ __forceinline__ void acquire_local(unsigned a) {
-  int polls = 0;
-  unsigned long long t0 = 0;
-  for (;;) {
-    unsigned v;
-    asm volatile("ld.acquire.cluster.shared::cta.u32 %0, [%1];"
-                 : "=r"(v)
-                 : "r"(a)
-                 : "memory");
-    if ((int)v >= 1) break;
-    if (++polls <= kHotPolls) continue;
-    if (t0 == 0) t0 = global_ns();
-    __nanosleep(32);
-    if (global_ns() - t0 > kDeadlockNs) __trap();
-  }
-  asm volatile("red.relaxed.cluster.shared::cta.add.u32 [%0], %1;"
-               :
-               : "r"(a), "r"(0xffffffffu)
-               : "memory");
-}
-// Whole block, every block of the cluster: a barrier whose arrival
-// releases and whose wait acquires.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n\t"
-      "barrier.cluster.wait.acquire.aligned;" ::
-          : "memory");
-}
-
 // The kernel's flags and buffers: in comm and sems (HBM, through L2),
 // or, with CLUSTER, in the shared memory of the rank that reads them.
 template <typename T, int OP, bool CLUSTER = false>
@@ -320,28 +263,6 @@ inline size_t rs_cluster_smem(int n, long long seg) {
          16;
 }
 
-// A launch of clusters of n <= 8 blocks (the portable cluster size) of
-// `threads`, on `stream`; sets the kernel's shared-memory attribute first.
-inline cudaError_t rs_cluster_config(const void* fn, int n, int threads,
-                                     size_t smem, int blocks, void* stream,
-                                     cudaLaunchConfig_t* cfg,
-                                     cudaLaunchAttribute* attr) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = n;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(blocks);
-  cfg->blockDim = dim3(threads);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = (cudaStream_t)stream;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return err;
-}
-
 }  // namespace ompi_ring
 
 // x: (n, n, C) rank-major ring blocks, out: (n, C), rank r's reduced
@@ -373,16 +294,8 @@ extern "C" int ompi_ring_reduce_scatter(const void* x, void* out, void* comm,
   if (!cluster)
     return launch_cooperative(fn, n * stripes, threads, args, device,
                               stream);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  if (err == cudaSuccess)
-    err = rs_cluster_config(fn, n, threads, rs_cluster_smem(n, seg),
-                            n * stripes, stream, &cfg, &attr);
-  if (err == cudaSuccess) err = cudaLaunchKernelExC(&cfg, fn, args);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_clusters(fn, n, threads, rs_cluster_smem(n, seg),
+                         n * stripes, args, device, stream);
 }
 
 // How many clusters of the n <= 8 ranks' blocks (`threads` each,
@@ -390,15 +303,6 @@ extern "C" int ompi_ring_reduce_scatter(const void* x, void* out, void* comm,
 extern "C" int ompi_ring_reduce_scatter_clusters(int n, int threads,
                                                  long long seg, int device) {
   using namespace ompi_ring;
-  const void* fn = rs_kernel(OP_SUM, DT_F32, true);
-  cudaError_t err = cudaSetDevice(device);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  if (err == cudaSuccess)
-    err = rs_cluster_config(fn, n, threads, rs_cluster_smem(n, seg), n,
-                            nullptr, &cfg, &attr);
-  int clusters = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
-  return err == cudaSuccess ? clusters : -(int)err;
+  return max_clusters(rs_kernel(OP_SUM, DT_F32, true), n, threads,
+                      rs_cluster_smem(n, seg), device);
 }

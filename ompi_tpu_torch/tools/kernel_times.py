@@ -1,25 +1,37 @@
-"""Time the ring allreduce, the trees, the ring reduce-scatter and three
-other rows through their wrappers, as ``chip_smoke.py`` times them, on a
-CUDA card.
+"""Time every kernel of the port through its wrapper, as ``chip_smoke.py``
+times it, on a CUDA card.
 
 Run from the root of a checkout on a machine with a card and ``nvcc``:
 ``python3 -m ompi_tpu_torch.tools.kernel_times``. It uses only wrappers
-the port has had since its early slices (``ring_allreduce``,
-``tree_reduce``, ``tree_bcast``, ``ring_reduce_scatter``,
-``_split_ring``, ``ring_allreduce_rd``, ``ppermute_shift``,
-``linear_scatter``), so a copy of this file dropped
-into an older checkout times that checkout's kernels: run the parent and
-the change in turns (parent, change, change, parent) in one machine to
-compare them. Prints one JSON line: the card's name, its power limit and
-the p50 (ms, 20 launches between CUDA events, after two warm-ups) of
-``ring_allreduce`` at 1 MiB per rank (float32 SUM), ``tree_reduce`` at
-4 KiB and 1 GiB per rank (int32 MAX, root 5), ``tree_bcast`` at 4 KiB
-and 1 GiB per rank (float32, root 3), ``ring_reduce_scatter`` at 4 KiB,
-1 MiB and 1 GiB sent per rank (float32 SUM), ``ring_allreduce_rd`` at
-4 KiB per rank (float32 SUM; timed first, and again after the 1 GiB
-tree), ``ppermute_shift`` at 8 MiB per rank
-(bfloat16, shift 1) and ``linear_scatter`` at 1 GiB per rank (root 5;
-timed first, and again last), n = 8.
+the port has had since its early slices (``pallas_ring``'s kernel
+wrappers and ``_split_ring``/``_chunked_layout``,
+``pallas_lower.sched_table`` with ``sched.build_schedule``,
+``quant.quant_allreduce``, ``pallas_attn.ring_attention_block``), so a
+copy of this file dropped into an older checkout times that checkout's
+kernels: run the parent and the change in turns (parent, change, change,
+parent) in one machine to compare them. Prints one JSON line: the
+card's name, its power limit and the p50 (ms, 20 launches between CUDA
+events, after two warm-ups) of, at n = 8:
+
+- ``linear_scatter`` at 1 GiB per rank (root 5; timed first, and again
+  last) and ``ring_allreduce_rd`` at 4 KiB per rank (float32 SUM; timed
+  first, and again after the 1 GiB trees);
+- ``ring_allreduce`` and ``ring_allreduce_bidir`` at 1 MiB per rank
+  (float32 SUM, ``_split_ring``'s blocks);
+- ``ring_reduce_scatter`` at 4 KiB, 1 MiB and 1 GiB sent per rank
+  (float32 SUM), ``tree_reduce`` at 4 KiB and 1 GiB per rank (int32 MAX,
+  root 5), ``tree_bcast`` at 4 KiB and 1 GiB per rank (float32, root 3);
+- ``sched_table`` on ``sched_pallas_ring`` at 1 MiB per rank,
+  ``sched_pallas_ring_seg`` at 1 GiB per rank and ``sched_pallas_rs`` at
+  1 GiB sent per rank (float32 SUM);
+- ``ring_allreduce_chunked`` at 1 GiB per rank (float32 SUM, 1 MiB
+  segments), ``selfdma_chunked`` at 1 GiB on one rank,
+  ``ring_allgather`` at 128 MiB sent per rank, ``ring_alltoall`` at
+  1 GiB sent per rank, ``linear_gather`` at 1 GiB per rank (root 3),
+  ``quant_allreduce`` at 1 GiB per rank (float32 SUM);
+- ``ppermute_shift`` at 8 MiB per rank (bfloat16, shift 1) and
+  ``ring_attention_block`` at 32 heads of 128, T = 512 per rank,
+  bfloat16, causal.
 """
 
 import json
@@ -28,8 +40,11 @@ import subprocess
 import sys
 
 import torch
+import torch.nn.functional as F
 
 from ompi_tpu_torch.coll import pallas_ring as pr
+from ompi_tpu_torch.coll import sched as sched_mod
+from ompi_tpu_torch.coll.sched import pallas_lower as pl
 
 N, KIB, MIB, GIB = 8, 1 << 10, 1 << 20, 1 << 30
 
@@ -50,6 +65,22 @@ def p50(fn, reps=20):
     return statistics.median(times)
 
 
+def table(algo: str, nbytes: int, gen) -> float:
+    """p50 of the table kernel on a registered program's layout: nbytes
+    per rank (sent, for the reduce-scatter)."""
+    prog = pl.analyze(sched_mod.build_schedule(algo, N))
+    if algo == "sched_pallas_rs":
+        data = torch.randn((N, N, nbytes // 4 // N), generator=gen,
+                           device="cuda")
+    else:
+        data = torch.randn((N, nbytes // 4), generator=gen,
+                           device="cuda").reshape(N, prog.nchunks, -1)
+    ms = p50(lambda: pl.sched_table(prog, data, "sum"))
+    del data
+    torch.cuda.empty_cache()
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA card", file=sys.stderr)
@@ -68,7 +99,9 @@ def main() -> int:
     blocks, _, _ = pr._split_ring(x)
     out = {"card": smi,
            "ring_allreduce_1MiB_ms": p50(
-               lambda: pr.ring_allreduce(blocks, "sum"))}
+               lambda: pr.ring_allreduce(blocks, "sum")),
+           "ring_allreduce_bidir_1MiB_ms": p50(
+               lambda: pr.ring_allreduce_bidir(blocks, "sum"))}
     y = torch.randn((N, N, MIB // 4 // N), generator=gen, device="cuda")
     out["ring_reduce_scatter_1MiB_ms"] = p50(
         lambda: pr.ring_reduce_scatter(y, "sum"))
@@ -88,10 +121,51 @@ def main() -> int:
     out["ring_allreduce_rd_4KiB_ms"] = rd_first
     out["ring_allreduce_rd_4KiB_after_tree_ms"] = p50(
         lambda: pr.ring_allreduce_rd(small, "sum"))
+    out["sched_table_ring_1MiB_ms"] = table("sched_pallas_ring", MIB, gen)
+    out["sched_table_seg_1GiB_ms"] = table("sched_pallas_ring_seg", GIB, gen)
+    out["sched_table_rs_1GiB_ms"] = table("sched_pallas_rs", GIB, gen)
+
+    x = torch.randn((N, GIB // 4), generator=gen, device="cuda")
+    rows_, seg_rows = pr._chunked_layout(GIB // 4, N, torch.float32, MIB)
+    seg = seg_rows * pr.LANES
+    inp = x.reshape(N, N, rows_ * pr.LANES)
+    out["ring_allreduce_chunked_1GiB_ms"] = p50(
+        lambda: pr.ring_allreduce_chunked(inp, "sum", seg))
+    out["linear_gather_1GiB_ms"] = p50(lambda: pr.linear_gather(x, 3))
+    from ompi_tpu_torch.coll import quant
+
+    quantum = N * 128 * 128  # allreduce_block_quant's padding
+    qblocks = F.pad(x, (0, (-x.shape[1]) % quantum)).reshape(N, N, -1, 128)
+    out["quant_allreduce_1GiB_ms"] = p50(
+        lambda: quant.quant_allreduce(qblocks))
+    del qblocks, inp
+    one = x[:1].contiguous()
+    rows_, seg_rows = pr._chunked_layout(GIB // 4, 1, torch.float32, MIB)
+    out["selfdma_chunked_1GiB_ms"] = p50(
+        lambda: pr.selfdma_chunked(one, seg_rows * pr.LANES))
+    del one
+    x = x.reshape(N, N, -1)
+    out["ring_alltoall_1GiB_ms"] = p50(lambda: pr.ring_alltoall(x))
+    ag = x[:, 0].contiguous()
+    del x
+    torch.cuda.empty_cache()
+    out["ring_allgather_128MiB_ms"] = p50(lambda: pr.ring_allgather(ag))
+    del ag
+    torch.cuda.empty_cache()
+
     hop = torch.randn((N, 4 * MIB), generator=gen, device="cuda").to(
         torch.bfloat16)
     out["ppermute_shift_8MiB_ms"] = p50(lambda: pr.ppermute_shift(hop, 1))
     del hop
+    from ompi_tpu_torch.coll import pallas_attn as pa
+
+    q, k, v = (torch.randn((N, 512, 32, 128), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    out["ring_attention_bf16_causal_ms"] = p50(
+        lambda: pa.ring_attention_block(q, k, v, True))
+    del q, k, v
+    torch.cuda.empty_cache()
     rows = torch.randn((N, GIB // 4), generator=gen, device="cuda")
     out["linear_scatter_1GiB_first_ms"] = scatter_first
     out["linear_scatter_1GiB_ms"] = p50(lambda: pr.linear_scatter(rows, 5))

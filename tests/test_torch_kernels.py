@@ -225,6 +225,16 @@ def test_bidir_matches_plain_on_card(cuda, n, dtype):
         want = pr.allreduce_block_bidir(x, op,
                                         bidir=pr.ring_allreduce_bidir_plain)
         assert torch.equal(_bits(got), _bits(want)), (n, dtype, op)
+    # other plans (stripes x threads, as the sweep takes them), and halves
+    # that are not whole 16-byte vectors (35 columns each)
+    for cols in (1280, 70):
+        blocks = _input(n, n * cols, dtype, cuda).reshape(n, n, cols)
+        want = pr.ring_allreduce_bidir_plain(blocks, "sum")
+        for stripes, threads in ((1, 128), (3, 256), (8, 512), (8, 1024)):
+            got = _launched_once(pr.BIDIR, lambda: pr._bidir_launch(
+                blocks, "sum", stripes, threads))
+            assert pr.BIDIR.last_plan["stripes"] == stripes
+            assert torch.equal(_bits(got), _bits(want)), (cols, stripes)
 
 
 @pytest.mark.gpu
@@ -291,8 +301,11 @@ def _programs(n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(TDT))
-@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 12])
 def test_sched_table_matches_plain_on_card(cuda, n, dtype):
+    """Every program at the plan's launch (clusters up to 8 ranks, L2
+    beyond), then with one stripe over many segments (fewer than a
+    stage's rounds, as many and more) in either memory."""
     for name, sched in _programs(n).items():
         prog = pl.analyze(sched)
         data = _input(n, prog.nchunks * 333, dtype, cuda).reshape(
@@ -302,6 +315,18 @@ def test_sched_table_matches_plain_on_card(cuda, n, dtype):
                                  lambda: pl.sched_table(prog, data, op))
             want = pl.sched_table_plain(prog, data, op)
             assert torch.equal(_bits(got), _bits(want)), (name, n, op)
+        rounds = max(length for _, length in pl._stages(prog))
+        for segs in (2, rounds, rounds + 3):
+            data = _input(n, prog.nchunks * 64 * segs, dtype, cuda).reshape(
+                n, prog.nchunks, 64 * segs)[..., :64 * segs - 5]
+            want = pl.sched_table_plain(prog, data, "max", seg_cols=64)
+            for cluster in (True, False) if n <= 8 else (False,):
+                got = _launched_once(pl.SCHED_TABLE, lambda: pl._table_launch(
+                    prog, data, "max", stripes=1, threads=128,
+                    seg_bytes=64 * data.element_size(), cluster=cluster))
+                assert pl.SCHED_TABLE.last_plan["segments"] == segs
+                assert torch.equal(_bits(got), _bits(want)), (name, segs,
+                                                              cluster)
 
 
 @pytest.mark.gpu
