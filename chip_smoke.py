@@ -46,8 +46,11 @@ Phases (any failure raises and exits non-zero):
    and in L2); allgather, tree bcast (also over four
    segments, the last ragged), alltoall, gather and
    scatter for the three dtypes (gather, scatter and bcast at roots 0
-   and n-1), and the three data movers for float64, float16 and int8
-   at odd row widths (their element-sized copies); ``sched_table`` on
+   and n-1; the allgather also with one stripe over 41 segments and with
+   the plan's stripes at n in {3, 8}, its buffers in a cluster's shared
+   memory and in L2, and at n = 12 in L2), and the three data movers and
+   the allgather for float64, float16 and int8 at odd row widths (their
+   element-sized copies); ``sched_table`` on
    eight programs (ring, ring with a non-identity order, segmented
    ring at 2 and 4 segments, reduce-scatter, allgather, a 3-member
    ``fuse_schedules``, a ``fuse_window``) at n in {2, 3, 4, 8, 12},
@@ -83,7 +86,14 @@ Phases (any failure raises and exits non-zero):
    every result must equal its plain version.
    - ``comm.allreduce(x, "sum")``, float32, at 4 KiB (recursive
      doubling), 1 MiB (ring) and 1 GiB (chunked, an 8 GiB rank-major
-     buffer) per rank;
+     buffer) per rank; then TunedColl's default route at 4096 B or less
+     in all, the host tier: float32 SUM at one element per rank (numpy's
+     pairwise order), bfloat16 SUM and MAX, float32 PROD and an int32 SUM
+     past 2**31, each bitwise an oracle computed apart on the CPU (a
+     rank-order fold, bfloat16 rounded at every step, int32 wrapped), the
+     repeat call through the dispatch memo; the p50 host wall time of a
+     call at 512 B per rank (host) and 516 B per rank (the device route
+     the decision takes), on a ``host_tier`` JSON line;
    - ``comm.bcast``, float32, root 3; ``comm.reduce``, int32 MAX, root
      5; ``comm.reduce_scatter_block``, float32 SUM, ``(8, 8, 32 Mi)``
      elements (1 GiB sent per rank); ``comm.allgather``, float32,
@@ -92,7 +102,8 @@ Phases (any failure raises and exits non-zero):
      reduction PyTorch computes on its own (row copies, ``amax``,
      ``sum`` to 1e-5);
    - ``comm.allreduce`` with ``pallas_rsag`` (reduce-scatter then
-     allgather) at 1 MiB per rank, bitwise equal to ``pallas_ring``;
+     allgather) at 1 MiB per rank, bitwise equal to ``pallas_ring``, and
+     at 1 GiB per rank, bitwise its halves' plain versions;
    - ``comm.allreduce(x, "sum")`` over the bidirectional ring, float32,
      1 MiB per rank: ``coll_pallas_bidir=1`` on PallasColl and
      ``pallas_bidir`` on TunedColl, checked against ``x.sum(0)`` to
@@ -121,8 +132,8 @@ Phases (any failure raises and exits non-zero):
      line, then ``comm.allreduce`` with no forced name at each size:
      the decision must hit the cache (``sched_cache_hits``), take the
      winner and give the winner's bits called by name; last, the cache
-     consult's host cost at 4 KiB per rank (``dispatch_cost``), on one
-     JSON line;
+     consult's host cost at 4 KiB per rank (``dispatch_cost``, with the
+     dispatch memo off and, in one arm, on), on one JSON line;
    - the quantized wire through TunedColl, float32 SUM, the winner
      cache off (the priors decide): ``quant_pallas`` forced at 64 KiB
      (the gate's ``coll_quant_min_bytes``), 1 MiB and 1 GiB per rank,
@@ -165,9 +176,15 @@ Phases (any failure raises and exits non-zero):
    ``x.sum(0, keepdim=True).expand_as(x).contiguous()`` is timed beside
    it as ``exact_sum_ms``, for context, with the two TunedColl route
    p50s of the quant path (``quant_ring_ms``, ``exact_route_ms``).
-   ``ring_allreduce_bidir``'s and ``sched_table``'s rows carry the plan
-   their timed launches ran (``plan``: stripes, threads, and for the
-   table its segments and the buffers' memory). ``sched_table``'s row is
+   ``ring_allreduce_bidir``'s, ``sched_table``'s and
+   ``selfdma_chunked``'s rows carry the plan their timed launches ran
+   (``plan``: stripes, threads, and for the table its segments and the
+   buffers' memory; blocks and piece bytes), the reduce-scatter's and the
+   allgather's its fields (stripes, threads, segment bytes, the buffers'
+   memory and bytes). ``ring_allgather``'s ``also`` list holds its L2
+   form at n = 12 (about 1 GiB received per rank) and
+   ``allreduce_block_rsag`` at 1 GiB per rank, each beside its bound and
+   library call. ``sched_table``'s row is
    the segmented-ring program at 1 GiB per rank; its ``also`` list
    holds the ring program at 1 MiB (beside ``ring_allreduce``, the same
    protocol hard-coded) and the reduce-scatter program at 1 GiB sent
@@ -468,6 +485,32 @@ def kernel_vs_plain(pr, gen) -> None:
         f"segments, buffers in shared memory and in L2: {checked} cases "
         f"bitwise equal, all semaphores 0 ({time.time() - t0:.1f} s)")
 
+    # The allgather's wavefront likewise: one stripe over 41 segments,
+    # blocks that are not whole vectors, its buffers in a cluster's shared
+    # memory and in L2 up to n = 8 and in L2 at n = 12 (the plan's L2
+    # form), also at the plan's stripes there.
+    t0 = time.time()
+    checked = 0
+    ag_seg = pr.AG_SEG_BYTES // 4
+    for n, clusters in ((3, (True, False)), (8, (True, False)),
+                        (12, (False,))):
+        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+            x = random_rank_major((n, 40 * ag_seg + 77), dtype, gen)
+            want = pr.ring_allgather_plain(x)
+            for cluster in clusters:
+                for stripes in (1, None):
+                    got = pr._ag_launch(x, stripes=stripes, cluster=cluster)
+                    torch.cuda.synchronize()
+                    check_sems(KERNELS["ring_allgather"])
+                    equal_or_raise(got, want, f"ring_allgather n={n} "
+                                   f"{dtype} stripes={stripes} "
+                                   f"cluster={cluster}")
+                    checked += 1
+    log(f"[kernel-vs-plain] ring_allgather with one stripe over 41 "
+        f"segments and at n = 12, buffers in shared memory and in L2: "
+        f"{checked} cases bitwise equal, all semaphores 0 "
+        f"({time.time() - t0:.1f} s)")
+
     # The bidirectional ring at other plans (stripes x threads, as the
     # sweep takes them, the plan's among them) and on halves that are not
     # whole 16-byte vectors (35 columns), at the main path's 1 MiB too.
@@ -506,6 +549,8 @@ def kernel_vs_plain(pr, gen) -> None:
             movers = [
                 ("ring_alltoall", lambda p: (pr.ring_alltoall_plain if p
                                              else pr.ring_alltoall)(x)),
+                ("ring_allgather", lambda p: (pr.ring_allgather_plain if p
+                                              else pr.ring_allgather)(flat)),
                 ("linear_gather", lambda p: (pr.linear_gather_plain if p
                                              else pr.linear_gather)(
                                                  flat, n - 1)),
@@ -520,7 +565,8 @@ def kernel_vs_plain(pr, gen) -> None:
                 equal_or_raise(got, run(True),
                                f"{name} n={n} {dtype} elems={elems}")
                 checked += 1
-    log(f"[kernel-vs-plain] data movers at other element sizes: {checked} "
+    log(f"[kernel-vs-plain] data movers (and the allgather) at other "
+        f"element sizes: {checked} "
         f"cases bitwise equal, all semaphores 0 ({time.time() - t0:.1f} s)")
 
 
@@ -718,7 +764,93 @@ def allreduce_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
         config.VARS.set("coll_tuned_allreduce_algorithm", algo)
         run(tcomm, kernel, f"TunedColl[{algo}]")
     config.VARS.set("coll_tuned_allreduce_algorithm", "")
+    host_tier(tcomm, gen)
     return errs
+
+
+def host_oracle(x, op: str):
+    """The host tier's result computed apart from it, on the CPU: float32
+    and int32 in numpy, folded in rank order (one element per rank:
+    numpy's pairwise order at n = 8), int32 wrapped; bfloat16 folded in
+    rank order in float32, rounded to bfloat16 after every step."""
+    import numpy as np
+    import torch
+
+    a = x.cpu()
+    if a.dtype == torch.bfloat16:
+        fn = {"sum": torch.add, "max": torch.maximum}[op]
+        acc = a[0].float()
+        for i in range(1, N):
+            acc = fn(acc, a[i].float()).to(torch.bfloat16).float()
+        return acc.to(torch.bfloat16)
+    v = a.numpy().astype(np.int64 if a.dtype == torch.int32 else np.float32)
+    fn = {"sum": np.add, "prod": np.multiply, "max": np.maximum}[op]
+    if v.ndim == 1:  # pairwise: ((a0+a1)+(a2+a3))+((a4+a5)+(a6+a7))
+        q = [fn(v[2 * i], v[2 * i + 1]) for i in range(N // 2)]
+        acc = fn(fn(q[0], q[1]), fn(q[2], q[3]))
+    else:
+        acc = v[0]
+        for i in range(1, N):
+            acc = fn(acc, v[i])
+    if a.dtype == torch.int32:
+        acc = (np.asarray(acc) + 2**31) % 2**32 - 2**31
+    return torch.from_numpy(np.array(acc, dtype=a.numpy().dtype))
+
+
+def host_tier(tcomm, gen) -> None:
+    """The default route at and just above ``coll_tuned_host_small_max_
+    bytes`` (4096 B of the whole buffer): five cases reduced on the host
+    (the SPC count ``coll_allreduce_algo_host`` rises once per shape,
+    then the dispatch memo serves the repeat call), each bitwise its
+    oracle; then the p50 host wall time of a call (launch to synchronize,
+    100 calls) at 512 B per rank (the host tier) and 516 B per rank (the
+    device route the decision takes there), on one JSON line."""
+    import torch
+    from ompi_tpu_torch.coll import tuned
+    from ompi_tpu_torch.core.counters import SPC
+
+    big = random_rank_major((N, 64), torch.float32, gen) * 1e3
+    cases = (  # (input, op)
+        (big[:, 0].contiguous(), "sum"),
+        (random_rank_major((N, 64), torch.bfloat16, gen), "sum"),
+        (random_rank_major((N, 64), torch.float32, gen), "prod"),
+        (torch.randint(2**30, 2**31 - 1, (N, 16), generator=gen,
+                       device="cuda", dtype=torch.int32), "sum"),
+        (random_rank_major((N, 33), torch.bfloat16, gen), "max"),
+    )
+    for x, op in cases:
+        before = SPC.read("coll_allreduce_algo_host")
+        out = tcomm.allreduce(x, op)
+        again = tcomm.allreduce(x, op)
+        what = f"host tier {tuple(x.shape)} {x.dtype} {op}"
+        if SPC.read("coll_allreduce_algo_host") != before + 1:
+            raise AssertionError(f"{what}: not the host tier once")
+        want = host_oracle(x, op).to(x.device).expand_as(x)
+        if out.device != x.device:
+            raise AssertionError(f"{what}: result on {out.device}")
+        equal_or_raise(out, want, what)
+        equal_or_raise(again, want, f"{what}, the memoized call")
+    log(f"[main] TunedColl default route, {len(cases)} host-tier cases "
+        f"({N} ranks, at most 4096 B in all): bitwise the oracle, the "
+        f"repeat call through the dispatch memo")
+    times = {}
+    for per_rank in (512, 516):
+        x = random_rank_major((N, per_rank // 4), torch.float32, gen)
+        route = "host" if per_rank * N <= 4096 else tuned.decide_allreduce(
+            tuned.op_lookup("sum"), per_rank, N, dtype=x.dtype)
+        walls = []
+        for _ in range(102):
+            t0 = time.perf_counter()
+            tcomm.allreduce(x, "sum")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        times[per_rank] = {"route": route,
+                           "p50_ms": statistics.median(walls[2:])}
+    print(json.dumps({"host_tier": {f"{k}_bytes_per_rank": v
+                                    for k, v in times.items()}}), flush=True)
+    log(f"[main] TunedColl default route p50 (host wall, 100 calls): 512 "
+        f"B/rank {times[512]['route']} {times[512]['p50_ms']:.5f} ms, 516 "
+        f"B/rank {times[516]['route']} {times[516]['p50_ms']:.5f} ms")
 
 
 def coll_input(kernel, nbytes, gen):
@@ -806,7 +938,8 @@ def coll_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
         config.VARS.set(var, "")
 
     # pallas_rsag: the two halves one after the other fold every element
-    # in the ring's order, so they equal pallas_ring bit for bit.
+    # in the ring's order, so they equal pallas_ring bit for bit; at 1 GiB
+    # per rank it equals its halves' plain versions.
     x = random_rank_major((N, MIB // 4), torch.float32, gen)
     config.VARS.set("coll_tuned_allreduce_algorithm", "pallas_rsag")
     got = tcomm.allreduce(x, "sum")
@@ -817,6 +950,25 @@ def coll_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
     equal_or_raise(got, ring, "TunedColl[pallas_rsag] vs [pallas_ring]")
     log(f"[main] TunedColl[pallas_rsag] {MIB} B/rank x {N} ranks: bitwise "
         f"equal to TunedColl[pallas_ring]")
+    del x, got, ring
+    x = random_rank_major((N, GIB // 4), torch.float32, gen)
+    config.VARS.set("coll_tuned_allreduce_algorithm", "pallas_rsag")
+    t0 = time.time()
+    got = tcomm.allreduce(x, "sum")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    config.VARS.set("coll_tuned_allreduce_algorithm", "")
+    for kernel in ("ring_reduce_scatter", "ring_allgather"):
+        check_sems(counters.KERNELS[kernel])
+    want = pr.allreduce_block_rsag(x, "sum", rs=pr.ring_reduce_scatter_plain,
+                                   ag=pr.ring_allgather_plain)
+    errs["ring_allgather"] = max(errs["ring_allgather"], equal_or_raise(
+        got, want, f"TunedColl[pallas_rsag] {GIB} B/rank"))
+    log(f"[main] TunedColl[pallas_rsag] {GIB} B/rank x {N} ranks: "
+        f"{dt * 1e3:.3f} ms host wall (first call), equal to its halves' "
+        f"plain versions")
+    del x, got, want
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -1091,12 +1243,14 @@ def sched_path(world, tcomm, pr, config, counters, gen) -> dict:
 
 def dispatch_cost(tcomm, config, cache, cache_dir, winner, gen) -> None:
     """The winner-cache consult's host cost at 4 KiB per rank through
-    TunedColl, in four arms interleaved in rounds: the saved cache
-    loaded (a hit on ``winner``), ``winner`` forced (no consult), no
-    cache (an untuned process: a miss, then the priors) and the consult
-    off (the priors); ten rounds, each in another order. Hit against
-    forced and untuned against off run the same algorithm, so each
-    difference is the consult. Per arm: the
+    TunedColl, in five arms interleaved in rounds: with the dispatch memo
+    off, the saved cache loaded (a hit on ``winner``), ``winner`` forced
+    (no consult), no cache (an untuned process: a miss, then the priors)
+    and the consult off (the priors); and the first with the memo on
+    (the decision made once, then skipped); ten rounds, each in another
+    order. Hit against forced and untuned against off run the same
+    algorithm, so each difference is the consult; memo against hit is
+    what the memo saves. Per arm: the
     p50 host time of ``comm.allreduce`` from launch to synchronize, and
     the mean host time of ``decide_allreduce`` alone."""
     import torch
@@ -1107,20 +1261,28 @@ def dispatch_cost(tcomm, config, cache, cache_dir, winner, gen) -> None:
     op = tuned.op_lookup("sum")
     empty = os.path.join(os.path.dirname(cache_dir), "sched_cache_empty")
     force = "coll_tuned_allreduce_algorithm"
-    arms = {"hit": {"coll_sched_cache_dir": cache_dir},
-            "forced": {"coll_sched_cache_dir": cache_dir, force: winner},
-            "untuned": {"coll_sched_cache_dir": empty},
-            "off": {"coll_sched_cache_enable": False}}
+    memo = "coll_tuned_fast_dispatch_cache"
+    # The first four arms run the decision on every call (the dispatch
+    # memo off); "memo" is "hit" with the memo on, as users get it.
+    arms = {"hit": {"coll_sched_cache_dir": cache_dir, memo: False},
+            "forced": {"coll_sched_cache_dir": cache_dir, force: winner,
+                       memo: False},
+            "untuned": {"coll_sched_cache_dir": empty, memo: False},
+            "off": {"coll_sched_cache_enable": False, memo: False},
+            "memo": {"coll_sched_cache_dir": cache_dir}}
     calls = {arm: [] for arm in arms}
     decides = {arm: [] for arm in arms}
     for rnd in range(10):
-        order = list(arms)[rnd % 4:] + list(arms)[:rnd % 4]
+        k = rnd % len(arms)
+        order = list(arms)[k:] + list(arms)[:k]
         for arm in order if rnd % 2 else order[::-1]:
             values = arms[arm]
             cache.CACHE.clear()
             for var, value in values.items():
                 config.VARS.set(var, value)
-            tcomm.allreduce(x, "sum")  # the load attempt, once per arm
+            # the load attempt, once per arm; the memo's plan after it
+            for _ in range(2):
+                tcomm.allreduce(x, "sum")
             torch.cuda.synchronize()
             hits = SPC.read("sched_cache_hits")
             for _ in range(40):
@@ -1132,11 +1294,12 @@ def dispatch_cost(tcomm, config, cache, cache_dir, winner, gen) -> None:
             for _ in range(2000):
                 tuned.decide_allreduce(op, 4 * KIB, N, dtype=x.dtype)
             decides[arm].append((time.perf_counter() - t0) / 2000 * 1e6)
-            if (SPC.read("sched_cache_hits") - hits) != (
-                    2040 if arm == "hit" else 0):
+            want = {"hit": 2040, "memo": 2000}.get(arm, 0)
+            if SPC.read("sched_cache_hits") - hits != want:
                 raise AssertionError(f"dispatch arm {arm}: wrong cache hits")
             config.VARS.set(force, "")
             config.VARS.set("coll_sched_cache_enable", True)
+            config.VARS.set(memo, True)
     out = {"winner": winner,
            "allreduce_p50_us": {a: statistics.median(v)
                                 for a, v in calls.items()},
@@ -1561,6 +1724,11 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
     from ompi_tpu_torch.core import counters
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    # The checks before grew the scratch the kernels reuse per stream (the
+    # allgather's L2 form at n = 12 the most): the main path starts from
+    # none and grows its own.
+    pr._SCRATCH.clear()
+    torch.cuda.empty_cache()
     world = tt.init(nranks=N)
     config.VARS.set("coll_pallas_priority", 100)
     pcomm = world.dup()
@@ -1819,15 +1987,20 @@ def measure(pr, gen, errs, launches) -> list:
                 f"{plan['blocks_per_rank']} blocks of {plan['threads']} "
                 f"threads per rank, {plan['segments']} segments of "
                 f"{plan['segment_bytes']} B")
-        if kernel == "ring_reduce_scatter":
+        if kernel in ("ring_reduce_scatter", "ring_allgather"):
             for key in ("stripes", "threads", "segment_bytes", "buffers",
                         "buffer_bytes"):
                 row[key] = plan[key]
-            log(f"[ring] ring_reduce_scatter at {nbytes} B sent/rank: "
+            log(f"[ring] {kernel} at {nbytes} B/rank: "
                 f"{plan['stripes']} stripes x {plan['threads']} threads per "
                 f"rank, segments of {plan['segment_bytes']} B, buffers "
                 f"{plan['buffer_bytes']} B in {plan['buffers']}")
-        if kernel in ("ring_allreduce_bidir", "sched_table"):
+        if kernel == "ring_allgather":
+            extra += ag_also(pr, gen, row)
+        if kernel == "selfdma_chunked":
+            extra += selfdma_split(pr, gen, row)
+        if kernel in ("ring_allreduce_bidir", "sched_table",
+                      "selfdma_chunked"):
             row["plan"] = plan
             log(f"[plan] {kernel} at {nbytes} B/rank: {plan}")
         if kernel == "sched_table":
@@ -1856,6 +2029,77 @@ def measure(pr, gen, errs, launches) -> list:
             f"{lib}){extra}")
         torch.cuda.empty_cache()
     return rows
+
+
+def ag_also(pr, gen, row) -> str:
+    """The allgather's L2 form at n = 12 (about 1 GiB received per rank)
+    beside its library call, and ``allreduce_block_rsag`` (the
+    reduce-scatter, then the allgather) at 1 GiB per rank, n = 8, beside
+    ``x.sum(0)`` broadcast: p50s into ``row["also"]``; returns the log
+    text."""
+    import torch
+
+    n = 12
+    x = random_rank_major((n, GIB // 4 // n // 128 * 128), torch.float32,
+                          gen)
+    l2 = {"nranks": n, "bytes_per_rank": n * x.shape[1] * 4,
+          "ms": p50_ms(lambda: pr.ring_allgather(x), KERNEL_REPS),
+          "plan": dict(pr.AG.last_plan),
+          "bound_ms": (n + 1) * n * x.shape[1] * 4 / HBM_BYTES_PER_S * 1e3,
+          "bound_by": "bytes",
+          "library_ms": p50_ms(lambda: x.unsqueeze(0).expand(
+              (n,) + tuple(x.shape)).contiguous(), KERNEL_REPS)}
+    del x
+    torch.cuda.empty_cache()
+    x = random_rank_major((N, GIB // 4), torch.float32, gen)
+    rsag = {"function": "allreduce_block_rsag", "nranks": N,
+            "bytes_per_rank": GIB,
+            "ms": p50_ms(lambda: pr.allreduce_block_rsag(x, "sum"), 5),
+            "bound_ms": 2 * N * GIB / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": p50_ms(lambda: x.sum(0, keepdim=True).expand_as(
+                x).contiguous(), 5)}
+    del x
+    torch.cuda.empty_cache()
+    row["also"] = [l2, rsag]
+    return (f"; n = 12 (L2) {l2['ms']:.4f} ms (bound {l2['bound_ms']:.4f}, "
+            f"library {l2['library_ms']:.4f}); allreduce_block_rsag at "
+            f"{GIB} B/rank {rsag['ms']:.4f} ms (library "
+            f"{rsag['library_ms']:.4f})")
+
+
+def device_ms(split: dict) -> float:
+    """The device time of the one kernel a profiled call launched."""
+    times = [v for k, v in split.items() if k.endswith(" device")]
+    if len(times) != 1:
+        raise AssertionError(f"not one kernel on the card: {split}")
+    return times[0]
+
+
+def selfdma_split(pr, gen, row) -> str:
+    """The one-rank kernel's and ``x.clone()``'s device times at 1 GiB
+    from ``torch.profiler`` (p50 of 20 calls, as ``tools/ring_probe.py``
+    reads them), beside the host time of the kernel's launch call: the
+    event times of the row hold each call's host work as well."""
+    import torch
+    from ompi_tpu_torch.tools.ring_probe import profile
+
+    x = random_rank_major((1, GIB // 4), torch.float32, gen)
+    seg = pr._chunked_layout(GIB // 4, 1, torch.float32, MIB)[1] * pr.LANES
+    split = profile(lambda: pr.selfdma_chunked(x, seg),
+                    kernel="selfdma_chunked")
+    row["device_ms"] = device_ms(split)
+    row["launch_call_host_ms"] = split["launch call host"]
+    row["library_device_ms"] = device_ms(profile(lambda: x.clone(),
+                                                 kernel="no such kernel"))
+    del x
+    torch.cuda.empty_cache()
+    log(f"[time] selfdma_chunked device time (torch.profiler, p50 of 20 "
+        f"calls): {row['device_ms']:.5f} ms, x.clone() "
+        f"{row['library_device_ms']:.5f} ms; the launch call "
+        f"{row['launch_call_host_ms']:.5f} ms on the host")
+    return (f"; on the card {row['device_ms']:.5f} ms, clone "
+            f"{row['library_device_ms']:.5f} ms")
 
 
 def ring_split(pr, gen, row) -> str:

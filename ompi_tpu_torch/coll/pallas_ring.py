@@ -16,17 +16,21 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
 - ``ring_allreduce_chunked`` (``_allreduce_chunked_kernel``): the ring
   streamed in segments with a per-segment credit, so comm scratch stays
   at n·2·segment bytes however large the message; at n == 1
-  ``selfdma_chunked`` (``_selfdma_chunked_kernel``) runs the same
-  segments through an input copy and an output copy, the identity.
+  ``selfdma_chunked`` (``_selfdma_chunked_kernel``), the identity, runs
+  the reference's three stages (in, the copy to itself, out) as bulk
+  copies through two pairs of shared-memory slots, pipelined.
 - ``ring_reduce_scatter`` (``_reduce_scatter_kernel``) and
   ``ring_allgather`` (``_allgather_kernel``): the two halves of the
   ring, n-1 steps each; one after the other they are the
-  ``pallas_rsag`` allreduce, bitwise equal to ``ring_allreduce``. The
-  reduce-scatter folds and forwards in one pass per step, segment by
-  segment, in a wavefront: in time slot t a rank makes step k of segment
-  t-k for every k (``simulate_ring_rs_fused``); up to 8 ranks the ranks'
-  blocks of a stripe form a thread-block cluster and hand the partials
-  over in each other's shared memory, beyond in buffers that fit in L2.
+  ``pallas_rsag`` allreduce, bitwise equal to ``ring_allreduce``. Both
+  make one pass per step, segment by segment, in a wavefront: in time
+  slot t a rank makes step k of segment t-k for every k; the
+  reduce-scatter folds and forwards (``simulate_ring_rs_fused``), the
+  allgather stores each arrival and forwards it
+  (``simulate_ring_ag_fused``; it moves bytes, any dtype). Up to 8 ranks
+  the ranks' blocks of a stripe form a thread-block cluster and hand the
+  segments over in each other's shared memory, beyond in buffers that
+  fit in L2.
 - ``tree_reduce`` (``_tree_reduce_kernel``): binomial reduce to a root,
   as a segmented "get" tree: a parent reads each child's finished row
   segment by segment after that segment's flag, with no comm slot.
@@ -68,7 +72,8 @@ interleavings; the tests show the reference's placement fails there and
 the port's does not.
 
 Plain versions: ``simulate_ring``/``simulate_ring_fused``/
-``simulate_ring_rs_fused``/``simulate_rd``/``simulate_tree_*``/
+``simulate_ring_rs_fused``/``simulate_ring_ag_fused``/``simulate_rd``/
+``simulate_tree_*``/
 ``simulate_ring_bidir``/``simulate_alltoall``/``simulate_gather``/
 ``simulate_scatter``/``simulate_ppermute`` run the same slot and flag
 schedule rank by rank on tensors (what ``pallas_lower.simulate`` is to
@@ -174,8 +179,24 @@ RS_CLUSTER_SEG_BYTES, RS_CLUSTER_THREADS, RS_CLUSTER_BLOCKS_PER_SM = \
     2 << 10, 128, 4
 RS_SEG_BYTES, RS_THREADS, RS_BLOCKS_PER_SM = 8 << 10, 512, 1
 RS_SMEM_BYTES, RS_SLOT_BYTES = 48 << 10, 24 << 20
-#: Buffers per step of the reduce-scatter's wavefront, one for each
-#: parity of the time slot (``simulate_ring_rs_fused``).
+#: The ring allgather's plans (csrc/ring_allgather.cu, ``_ag_plan``), in
+#: the same two forms and budgets as the reduce-scatter's. The best of a
+#: sweep at 1 GiB received per rank, n = 8, on an NVIDIA H100 (PERF.md,
+#: tools/ag_selfdma_check.py): in shared memory 4.153 ms at 4 KiB, 256 x 4
+#: (2 KiB with 128 x 8 4.380; 128 x 4 at 2 KiB 5.326; 512 x 1 5.0-13.6);
+#: in L2 5.790 at 4 KiB, 256 x 2 (5.9-15.2 otherwise); the library 6.841.
+AG_CLUSTER_SEG_BYTES, AG_CLUSTER_THREADS, AG_CLUSTER_BLOCKS_PER_SM = \
+    4 << 10, 256, 4
+AG_SEG_BYTES, AG_THREADS, AG_BLOCKS_PER_SM = 4 << 10, 256, 2
+#: Bytes of a piece of ``selfdma_chunked``'s bulk-copy pipeline (its
+#: shared memory holds four) and its blocks per SM. Sweeps at 1 GiB on an
+#: NVIDIA H100 (PERF.md, tools/ag_selfdma_check.py): 8 KiB x 4 0.753-0.786
+#: ms, 16 KiB x 2 or 3 0.766-0.800, 4 KiB x 6 0.786, 32 KiB x 1 0.85;
+#: ``x.clone()`` 0.725-0.755 in the same runs.
+SELFDMA_PIECE_BYTES, SELFDMA_BLOCKS_PER_SM = 8 << 10, 4
+#: Buffers per step of the reduce-scatter's and the allgather's
+#: wavefronts, one for each parity of the time slot
+#: (``simulate_ring_rs_fused``, ``simulate_ring_ag_fused``).
 RS_BUFS = 2
 #: Most segments per row (or ring block) in the plain versions of the
 #: segmented bcast and reduce-scatter: the simulators take a Python step
@@ -518,6 +539,91 @@ def simulate_ring_rs_fused(blocks: torch.Tensor, op: Op, *,
                 sems[left, "cap", t % 2] += 1
 
     _drive([rank(r) for r in range(n)], sems, rng)
+    return out, _residue(sems)
+
+
+def simulate_ring_ag_fused(x: torch.Tensor, *,
+                           seg_cols: Optional[int] = None, stripes: int = 1,
+                           credit: str = "after_read",
+                           rng: Optional[random.Random] = None):
+    """Run ``ring_allgather``'s one-pass wavefront on (n, W) own blocks;
+    returns ((n, n, W) out, residue) as ``simulate_ring`` does. The
+    columns are cut into ``stripes`` stripes, each a thread block of
+    every rank with its own buffers and flags (one program per (rank,
+    stripe)), and each stripe into segments of ``seg_cols`` columns (the
+    last ragged; default one). Step k of segment i at rank me takes block
+    me-k-1: step 0 reads it from the left rank's x, step k the left's
+    step k-1 of the same segment from its buffer; it stores the arrival
+    to out[me][me-k-1] and, but at the last step n-2, straight into the
+    right's buffer for step k+1. In time slot t rank me makes step k of
+    segment t - k for every k that has one, and copies x[me]'s segment t
+    to out[me][me]; the arrivals it reads were made in the left's slot
+    t - 1, in buffers (k, t mod 2). Waits and raises are those of
+    ``simulate_ring_rs_fused`` (``_rs_forwards``), so every flag ends at
+    0. ``credit`` "before_read" credits a buffer to the left before the
+    passes that read it: the negative control. ``credit`` "reference" runs
+    the JAX package's two-pass allgather instead (``simulate_ring(phase=
+    "ag", credit="reference")``: a post-seed credit, then a credit right
+    after filling a slot)."""
+    if credit not in ("after_read", "before_read", "reference"):
+        raise ArgumentError(f"unknown credit placement {credit!r}")
+    if credit == "reference":
+        return simulate_ring(x, None, credit="reference", phase="ag", rng=rng)
+    n, W = _ring_blocks(x, False)
+    if stripes < 1:
+        raise ArgumentError(f"bad stripe count {stripes}")
+    sw = -(-W // stripes)
+    seg = sw if seg_cols is None else seg_cols
+    if seg <= 0:
+        raise ArgumentError(f"bad wavefront segment {seg}")
+    n_segs = max(1, -(-sw // seg))
+    out = x.new_zeros((n, n, W))
+    # The passes copy bytes: on the CPU through numpy views of the
+    # tensors' bytes, several times faster to slice than tensors.
+    e = x.element_size()
+    xb, ob = x.contiguous().view(torch.uint8), out.view(torch.uint8)
+    comm = torch.zeros((n, stripes, max(n - 2, 0), RS_BUFS, seg * e),
+                       dtype=torch.uint8, device=x.device)
+    if x.device.type == "cpu":
+        xb, ob, comm = xb.numpy(), ob.numpy(), comm.numpy()
+    sems: dict = collections.defaultdict(int)
+
+    def fwd(p):
+        return _rs_forwards(p, n, n_segs)
+
+    def rank(me, s):
+        left, right = (me - 1) % n, (me + 1) % n
+        c0, c1 = min(W, s * sw), min(W, (s + 1) * sw)
+
+        def cols(i):  # segment i's bytes
+            return slice(e * min(c1, c0 + i * seg),
+                         e * min(c1, c0 + (i + 1) * seg))
+
+        for t in range(n_segs + n - 2):
+            if fwd(t - 1):
+                yield (me, s, "recv", t % 2), 1
+            if fwd(t) and fwd(t - 2):
+                yield (me, s, "cap", (t + 1) % 2), 1
+            credit_slot = fwd(t - 1) and fwd(t + 1)
+            if credit == "before_read" and credit_slot:
+                sems[left, s, "cap", t % 2] += 1
+                yield _PAUSE
+            if t < n_segs:
+                ob[me, me, cols(t)] = xb[me, cols(t)]
+            for k in range(max(0, t - n_segs + 1), min(n - 2, t) + 1):
+                c = cols(t - k)
+                w = c.stop - c.start
+                arrival = (xb[left, c] if k == 0
+                           else comm[me, s, k - 1, t % 2, :w])
+                ob[me, (me - k - 1) % n, c] = arrival
+                if k < n - 2:
+                    comm[right, s, k, (t + 1) % 2, :w] = arrival
+            if fwd(t):
+                sems[right, s, "recv", (t + 1) % 2] += 1
+            if credit == "after_read" and credit_slot:
+                sems[left, s, "cap", t % 2] += 1
+
+    _drive([rank(r, s) for s in range(stripes) for r in range(n)], sems, rng)
     return out, _residue(sems)
 
 
@@ -936,7 +1042,9 @@ def ring_reduce_scatter_plain(blocks: torch.Tensor, op) -> torch.Tensor:
 
 
 def ring_allgather_plain(flat: torch.Tensor) -> torch.Tensor:
-    return _checked(simulate_ring(flat, None, phase="ag"))
+    W = flat.shape[-1]
+    seg = _plain_seg(W, AG_SEG_BYTES // flat.element_size())
+    return _checked(simulate_ring_ag_fused(flat, seg_cols=seg))
 
 
 def tree_reduce_plain(flat: torch.Tensor, op, root: int) -> torch.Tensor:
@@ -993,8 +1101,9 @@ _ARGTYPES = {
     # n_segs, cluster, op, dtype, dev, stream
     "ring_reduce_scatter": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I,
                             _I, _I, _P],
-    # x, out, comm, sems, n, stripes, W, dtype, dev, stream
-    "ring_allgather": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, threads, block bytes, seg vectors,
+    # n_segs, cluster, dev, stream
+    "ring_allgather": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _P],
     # x, out, sems, blocks per relative rank, n, threads, L, seg, n_segs,
     # root, op, dtype, dev, stream
     "tree_reduce": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _I,
@@ -1016,8 +1125,8 @@ _ARGTYPES = {
     # dtype, dev, stream
     "sched_table": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _LL, _LL,
                     _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, out, comm, blocks, seg bytes, n_segs, elem size, dev, stream
-    "selfdma_chunked": [_P, _P, _P, _I, _LL, _I, _I, _I, _P],
+    # x, out, blocks, piece bytes, bytes, elem size, dev, stream
+    "selfdma_chunked": [_P, _P, _I, _LL, _LL, _I, _I, _P],
     # x, out, comm, sems, n, stripes, rows, dev, stream
     "quant_allreduce": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
     # x, out, comm, sems, n, stripes, L, shift, elem size, dev, stream
@@ -1202,8 +1311,8 @@ def selfdma_chunked_plain(x: torch.Tensor, seg_cols: int) -> torch.Tensor:
 
 def selfdma_chunked(x: torch.Tensor, seg_cols: int) -> torch.Tensor:
     """(1, W) one-rank buffer -> a new (1, W) tensor equal to it, any
-    dtype, streamed in segments of ``seg_cols`` columns through two comm
-    slots: the n == 1 case of the chunked ring."""
+    dtype, streamed in segments of ``seg_cols`` columns: the n == 1 case
+    of the chunked ring."""
     if x.ndim != 2 or x.shape[0] != 1:
         raise ArgumentError(
             f"one-rank chunked input must be (1, W), got {tuple(x.shape)}")
@@ -1212,19 +1321,38 @@ def selfdma_chunked(x: torch.Tensor, seg_cols: int) -> torch.Tensor:
         raise ArgumentError(f"segment {seg_cols} does not divide {W}")
     if not x.is_cuda:
         return selfdma_chunked_plain(x, seg_cols)
+    return _selfdma_launch(x)
+
+
+def _selfdma_launch(x: torch.Tensor, piece: Optional[int] = None,
+                    per_sm: Optional[int] = None,
+                    defines: tuple = ()) -> torch.Tensor:
+    """Launch csrc/selfdma_chunked.cu on a (1, W) CUDA buffer with
+    ``SELFDMA_PIECE_BYTES`` pieces and ``SELFDMA_BLOCKS_PER_SM`` blocks
+    per SM (or the ones given: the measurement tools' sweep), no more
+    blocks than pieces. ``SELFDMA.last_plan`` records what was
+    launched."""
     cap = require_kernel_device(x)
+    piece = piece or SELFDMA_PIECE_BYTES
     x = x.contiguous()
     out = torch.empty_like(x)
-    elem = x.element_size()
-    comm = x.new_empty(2 * seg_cols)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _entry("selfdma_chunked")(
-        x.data_ptr(), out.data_ptr(), comm.data_ptr(), cap.sm_count,
-        seg_cols * elem, W // seg_cols, elem, x.device.index or 0, stream)
+    nbytes = x.numel() * x.element_size()
+    blocks = max(1, min((per_sm or SELFDMA_BLOCKS_PER_SM) * cap.sm_count,
+                        -(-(nbytes // 16 * 16) // piece)))
+    err = _entry("selfdma_chunked", defines)(
+        x.data_ptr(), out.data_ptr(), blocks, piece, nbytes,
+        x.element_size(), x.device.index or 0, _raw_stream(x))
     if err:
         raise KernelError(f"selfdma_chunked launch failed: CUDA error {err}")
-    SELFDMA.launched(torch.zeros(0, dtype=torch.int32, device=x.device))
+    SELFDMA.launched(_no_flags(x.device), {"blocks": blocks,
+                                           "piece_bytes": piece})
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _no_flags(device: torch.device) -> torch.Tensor:
+    """The flags of a kernel that has none, for its counter."""
+    return torch.zeros(0, dtype=torch.int32, device=device)
 
 
 def ring_allreduce_rd(flat: torch.Tensor, op) -> torch.Tensor:
@@ -1253,25 +1381,25 @@ def ring_reduce_scatter(blocks: torch.Tensor, op) -> torch.Tensor:
     return _rs_launch(blocks, op)
 
 
-def _rs_plan(n: int, block_bytes: int, sm_count: int,
-             cluster: Optional[bool] = None) -> tuple[int, int, int, bool]:
-    """(stripes, threads per block, segment bytes, cluster) of
-    ``ring_reduce_scatter`` for n ranks of ``block_bytes``-byte ring
-    blocks: clusters up to ``RS_CLUSTER_RANKS`` ranks (unless ``cluster``
-    says otherwise), each form with its segment, threads and blocks per
-    SM; stripes of at least a segment, as many as that many blocks per SM
-    allow; segments no longer than a stripe, and shortened until a
-    block's (n-2) x RS_BUFS buffers take at most ``RS_SMEM_BYTES`` of its
-    shared memory (clusters) or all blocks' at most ``RS_SLOT_BYTES``
-    (L2)."""
+def _wave_plan(n: int, block_bytes: int, sm_count: int,
+               cluster: Optional[bool], forms: tuple
+               ) -> tuple[int, int, int, bool]:
+    """(stripes, threads per block, segment bytes, cluster) of a
+    wavefront kernel (``ring_reduce_scatter``, ``ring_allgather``) for n
+    ranks of ``block_bytes``-byte ring blocks: clusters up to
+    ``RS_CLUSTER_RANKS`` ranks (unless ``cluster`` says otherwise), each
+    form (``forms``: the cluster's, then the L2 one's) with its segment,
+    threads and blocks per SM; stripes of at least a segment, as many as
+    that many blocks per SM allow; segments no longer than a stripe, and
+    shortened until a block's (n-2) x RS_BUFS buffers take at most
+    ``RS_SMEM_BYTES`` of its shared memory (clusters) or all blocks' at
+    most ``RS_SLOT_BYTES`` (L2)."""
     if cluster is None:
         cluster = n <= RS_CLUSTER_RANKS
     elif cluster and n > RS_CLUSTER_RANKS:
         raise ArgumentError(f"no cluster of {n} ranks (at most "
                             f"{RS_CLUSTER_RANKS})")
-    seg, threads, per_sm = (
-        (RS_CLUSTER_SEG_BYTES, RS_CLUSTER_THREADS, RS_CLUSTER_BLOCKS_PER_SM)
-        if cluster else (RS_SEG_BYTES, RS_THREADS, RS_BLOCKS_PER_SM))
+    seg, threads, per_sm = forms[0] if cluster else forms[1]
     stripes = _stripes(n, block_bytes, per_sm * sm_count, seg)
     seg = min(seg, -(-block_bytes // 16 // stripes) * 16)
     per_block = RS_BUFS * max(n - 2, 0)
@@ -1281,16 +1409,25 @@ def _rs_plan(n: int, block_bytes: int, sm_count: int,
     return stripes, threads, seg, cluster
 
 
+def _rs_plan(n: int, block_bytes: int, sm_count: int,
+             cluster: Optional[bool] = None) -> tuple[int, int, int, bool]:
+    """``_wave_plan`` of ``ring_reduce_scatter``."""
+    return _wave_plan(n, block_bytes, sm_count, cluster, (
+        (RS_CLUSTER_SEG_BYTES, RS_CLUSTER_THREADS, RS_CLUSTER_BLOCKS_PER_SM),
+        (RS_SEG_BYTES, RS_THREADS, RS_BLOCKS_PER_SM)))
+
+
 @functools.lru_cache(maxsize=64)
-def _rs_clusters(n: int, threads: int, seg_bytes: int, device: int) -> int:
-    """Clusters of the reduce-scatter's n blocks that the card holds at
-    once (the cluster launch runs the rest after them)."""
-    fn = build.library("ring_reduce_scatter").ompi_ring_reduce_scatter_clusters
+def _clusters(name: str, n: int, threads: int, seg_bytes: int,
+              device: int) -> int:
+    """Clusters of a wavefront kernel's n blocks (csrc/<name>.cu) that the
+    card holds at once (the cluster launch runs the rest after them)."""
+    fn = getattr(build.library(name), f"ompi_{name}_clusters")
     fn.argtypes, fn.restype = [_I, _I, _LL, _I], ctypes.c_int
     got = fn(n, threads, seg_bytes // 16, device)
     if got <= 0:
-        raise KernelError(f"ring_reduce_scatter: no cluster of {n} blocks "
-                          f"fits (CUDA error {-got})")
+        raise KernelError(f"{name}: no cluster of {n} blocks fits (CUDA "
+                          f"error {-got})")
     return got
 
 
@@ -1319,7 +1456,8 @@ def _rs_launch(blocks: torch.Tensor, op, stripes: Optional[int] = None,
     if stripes is None:
         stripes = plan[0]
         if cluster:
-            stripes = min(stripes, _rs_clusters(n, threads, seg_bytes, dev))
+            stripes = min(stripes, _clusters("ring_reduce_scatter", n,
+                                              threads, seg_bytes, dev))
     seg_v = seg_bytes // 16
     sw = -(-(c_bytes // 16) // stripes)  # vectors per stripe
     n_segs = -(-sw // seg_v)
@@ -1345,12 +1483,69 @@ def _rs_launch(blocks: torch.Tensor, op, stripes: Optional[int] = None,
 
 def ring_allgather(flat: torch.Tensor) -> torch.Tensor:
     """(n, C) per-rank blocks -> (n, n, C): every rank's row holds every
-    rank's block, circulated once round the ring."""
-    n, C = _ring_blocks(flat, False)
+    rank's block, circulated once round the ring. It moves bytes, so it
+    takes any dtype whose element size divides 16."""
+    _ring_blocks(flat, False)
     if not flat.is_cuda:
         return ring_allgather_plain(flat)
-    return _launch("ring_allgather", AG, flat, (n, n, C), C, 2 * n,
-                   RING_NSEM, (C,), _dtype_code(flat.dtype))
+    return _ag_launch(flat)
+
+
+def _ag_plan(n: int, block_bytes: int, sm_count: int,
+             cluster: Optional[bool] = None) -> tuple[int, int, int, bool]:
+    """``_wave_plan`` of ``ring_allgather``."""
+    return _wave_plan(n, block_bytes, sm_count, cluster, (
+        (AG_CLUSTER_SEG_BYTES, AG_CLUSTER_THREADS, AG_CLUSTER_BLOCKS_PER_SM),
+        (AG_SEG_BYTES, AG_THREADS, AG_BLOCKS_PER_SM)))
+
+
+def _ag_launch(flat: torch.Tensor, stripes: Optional[int] = None,
+               threads: Optional[int] = None,
+               seg_bytes: Optional[int] = None,
+               cluster: Optional[bool] = None,
+               defines: tuple = ()) -> torch.Tensor:
+    """Launch csrc/ring_allgather.cu on (n, C) CUDA blocks with the plan's
+    stripes, threads, segment and buffer memory (shared memory in
+    clusters, or L2), or the ones given, as ``_rs_launch`` does.
+    ``AG.last_plan`` records what was launched."""
+    n, C = _ring_blocks(flat, False)
+    cap = require_kernel_device(flat)
+    elem = flat.element_size()
+    if 16 % elem:
+        raise ArgumentError(f"no ring allgather for {flat.dtype}: its "
+                            f"elements do not tile 16-byte vectors")
+    vec = 16 // elem
+    cols = -(-C // vec) * vec  # blocks of whole 16-byte vectors
+    x = _aligned(flat, cols)
+    c_bytes = cols * elem
+    plan = _ag_plan(n, c_bytes, cap.sm_count, cluster)
+    threads, seg_bytes = threads or plan[1], seg_bytes or plan[2]
+    cluster = plan[3]
+    dev = x.device.index or 0
+    if stripes is None:
+        stripes = plan[0]
+        if cluster:
+            stripes = min(stripes, _clusters("ring_allgather", n, threads,
+                                              seg_bytes, dev))
+    seg_v = seg_bytes // 16
+    sw = -(-(c_bytes // 16) // stripes)  # vectors per stripe
+    n_segs = -(-sw // seg_v)
+    out = x.new_empty((n, n, cols))
+    stream = _raw_stream(x)
+    buffer_bytes = n * stripes * RS_BUFS * max(n - 2, 0) * seg_bytes
+    comm = _scratch(x, stream, "comm", 0 if cluster else buffer_bytes)
+    sems = _scratch(x, stream, "flags", n * stripes * 2 * RS_BUFS)
+    err = _entry("ring_allgather", defines)(
+        x.data_ptr(), out.data_ptr(), comm.data_ptr(), sems.data_ptr(), n,
+        stripes, threads, c_bytes, seg_v, n_segs, int(cluster), dev, stream)
+    if err:
+        raise KernelError(f"ring_allgather launch failed: CUDA error {err}")
+    AG.launched(sems, {
+        "stripes": stripes, "threads": threads, "segment_bytes": seg_bytes,
+        "segments": n_segs,
+        "buffers": "cluster shared memory" if cluster else "L2",
+        "buffer_bytes": buffer_bytes})
+    return out[..., :C].contiguous() if cols != C else out
 
 
 @functools.lru_cache(maxsize=64)

@@ -113,6 +113,10 @@ class ScheduleCache:
         # (cache_dir change, test reset) re-arms the attempt.
         self._load_attempted: set = set()
         self._load_gen = -1
+        # bumped on every content change; memoized dispatch plans
+        # (tuned._fast_allreduce) stamp it so a warm or a tune
+        # invalidates them.
+        self._generation = 0
 
     # -- entries -------------------------------------------------------
 
@@ -127,6 +131,7 @@ class ScheduleCache:
             ent["score"] = float(score)
         with self._mu:
             self._entries[key] = ent
+            self._generation += 1
 
     def get(self, key: str) -> Optional[dict]:
         return self._entries.get(key)
@@ -142,6 +147,11 @@ class ScheduleCache:
         with self._mu:
             self._entries.clear()
             self._load_attempted.clear()
+            self._generation += 1
+
+    def generation(self) -> int:
+        """Content-change counter (see __init__)."""
+        return self._generation
 
     # -- digest / persistence ------------------------------------------
 
@@ -204,6 +214,8 @@ class ScheduleCache:
                 if isinstance(e, dict) and e.get("algorithm"):
                     self._entries[k] = e
                     loaded += 1
+            if loaded:
+                self._generation += 1
         return loaded
 
     def ensure_loaded(self, topo_fp: str, nranks: int) -> None:

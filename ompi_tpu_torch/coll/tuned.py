@@ -8,9 +8,15 @@ Precedence, as in the JAX package: forced var
 (non-commutative or joint op → the rank-ordered path) > the schedule
 compiler's winner cache (``sched.lookup``) > static priors
 (``sched/priors.prior_*``, where the quantized-wire gate comes first
-for allreduce). The host tier, the circuit breaker and the
-health/fault seams are not ported yet: a fault in the chosen tier
-propagates to the caller instead of degrading to the next tier. Every
+for allreduce). Before that pipeline, ``TunedColl.allreduce`` takes the
+host tier and the dispatch memo, as in the JAX package: a whole
+rank-major buffer of at most ``coll_tuned_host_small_max_bytes`` is
+reduced on the host with numpy's ``ufunc.reduce`` over the rank axis
+(bfloat16 folded in rank order), and the plan chosen for a (shape,
+dtype, op) is kept on the communicator until the config or the winner
+cache changes. The circuit breaker and the health/fault seams are not
+ported yet: a fault in the chosen tier propagates to the caller instead
+of degrading to the next tier. Every
 name the priors return is ported, with ``coll_tuned_prefer_native``
 on or off, and every spmd algorithm name of the JAX package's bcast,
 reduce, allgather and reduce_scatter tables, so a rules file naming
@@ -38,6 +44,7 @@ import json
 from functools import partial
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..core import config
@@ -98,6 +105,21 @@ _alltoall_small = _V("alltoall_small_msg", type=int, default=256,
 _alltoall_large = _V("alltoall_large_msg", type=int, default=32 << 10,
                      description="Alltoall: bytes/dest above which "
                                  "pairwise exchange is used")
+_fast_cache_var = _V("fast_dispatch_cache", type=bool, default=True,
+                     description="Memoize the routed allreduce dispatch "
+                                 "per (comm, shape, dtype, op): repeat "
+                                 "calls skip the decision pipeline "
+                                 "entirely. Invalidated by any config "
+                                 "mutation or winner-cache change")
+_host_small_max = _V("host_small_max_bytes", type=int, default=4096,
+                     description="Allreduces of a whole rank-major buffer "
+                                 "at or below this many bytes reduce on "
+                                 "the HOST (numpy over the rank axis, then "
+                                 "one copy back to the card) instead of "
+                                 "launching device work: dispatch latency "
+                                 "beats device compute at this size. 0 "
+                                 "disables. Skipped under forced "
+                                 "algorithms or a rules file")
 
 ALLREDUCE_ALGOS: dict[str, Callable] = {
     "native": spmd.allreduce_native,
@@ -591,11 +613,9 @@ class TunedColl(XlaColl):
     PRIORITY = 80
     DESCRIPTION = "algorithm decision layer (reference: coll/tuned)"
 
-    def allreduce(self, comm, x, op):
-        op = op_lookup(op)
-        x = _leaf_check(comm, x)
-        if comm.size == 1 and not _force_allreduce.value:
-            return x
+    def _allreduce_choice(self, comm, x, op):
+        """(algo, plan) of the decision pipeline for allreduce; x is
+        leaf-checked."""
         is_plain = isinstance(x, torch.Tensor)
         algo = decide_allreduce(op, _nbytes(x), comm.size,
                                 dtype=x.dtype if is_plain else None)
@@ -620,7 +640,104 @@ class TunedColl(XlaColl):
         else:
             per_rank = lambda b: fn(b, op)  # noqa: E731
         SPC.record(f"coll_allreduce_algo_{algo}")
-        return compile_plan(comm, key, per_rank)(x)
+        return algo, compile_plan(comm, key, per_rank)
+
+    # Host-reducible predefined ops: ufunc.reduce over the rank axis, as
+    # the JAX package's host tier computes them.
+    _HOST_NP_OPS = {
+        "sum": np.add, "prod": np.multiply,
+        "max": np.maximum, "min": np.minimum,
+    }
+    _HOST_TORCH_OPS = {
+        "sum": torch.add, "prod": torch.mul,
+        "max": torch.maximum, "min": torch.minimum,
+    }
+
+    def _fast_allreduce(self, comm, x, op):
+        """Memoized hot-path dispatch: the routed plan for (shape, dtype,
+        op) is kept on the comm and repeat calls skip the decision
+        pipeline. Tiny buffers get the host tier instead. Returns the
+        result, or None when the slow path must run (memo off, a tuple
+        or a buffer the slow path refuses, a plan that failed)."""
+        if not _fast_cache_var.value or not isinstance(x, torch.Tensor):
+            return None
+        if x.ndim < 1 or x.shape[0] != comm.size or x.device != comm.device:
+            return None  # the slow path raises the proper ArgumentError
+        from .sched import cache as sched_cache
+
+        # The JAX package also stamps its circuit breaker's, health
+        # ledger's and SLO's generations; the port stamps them when
+        # those modules land.
+        stamp = (config.generation(), sched_cache.CACHE.generation())
+        cache = comm.__dict__.setdefault("_tuned_fast", {})
+        key = (tuple(x.shape), x.dtype, op.cache_key)
+        ent = cache.get(key)
+        if ent is None or ent[0] != stamp:
+            fn = self._build_fast_allreduce(comm, x, op)
+            if fn is None:
+                return None
+            ent = cache[key] = (stamp, fn)
+        try:
+            return ent[1](x)
+        except ArgumentError:
+            raise
+        except Exception:  # a tier fault, not a caller error
+            # A fault under a memoized plan: forget the entry and let
+            # the slow path route (and raise) again.
+            cache.pop(key, None)
+            return None
+
+    def _build_fast_allreduce(self, comm, x, op):
+        limit = _host_small_max.value
+        if (0 < limit >= x.numel() * x.element_size() and op.predefined
+                and op.name in self._HOST_NP_OPS
+                and not _force_allreduce.value and _rules() is None):
+            SPC.record("coll_allreduce_algo_host")
+            return partial(self._host_plan, op.name)
+        try:
+            _algo_name, plan = self._allreduce_choice(comm, x, op)
+        except ArgumentError:
+            raise
+        except Exception:  # a tier fault, not a caller error
+            return None  # the slow path surfaces the real error
+        return plan
+
+    @classmethod
+    def _host_plan(cls, opname: str, buf: torch.Tensor) -> torch.Tensor:
+        """``ufunc.reduce(a, axis=0)`` on the host, bit for bit as numpy
+        computes it, broadcast to every rank on the buffer's device.
+        Float32 (and every type numpy holds) goes through numpy itself:
+        its add-reduce sums pairwise where the rank axis is the innermost
+        loop (one element per rank, n >= 8) and in rank order otherwise,
+        and only numpy's own loop gives those bits. Integer sums and
+        products come back from numpy in int64 and are cast back, which
+        wraps to the bits of the payload type. numpy has no bfloat16 here,
+        so bfloat16 folds in rank order on the CPU, rounding to bfloat16
+        at every step, as ml_dtypes' loop does (never ``torch.sum``, which
+        accumulates in float32)."""
+        a = buf.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            combine = cls._HOST_TORCH_OPS[opname]
+            red = a[0]
+            for i in range(1, a.shape[0]):
+                red = combine(red, a[i])
+        else:
+            arr = a.numpy()
+            red = torch.from_numpy(np.array(
+                cls._HOST_NP_OPS[opname].reduce(arr, axis=0),
+                dtype=arr.dtype))
+        return red.to(buf.device).expand(buf.shape).contiguous()
+
+    def allreduce(self, comm, x, op):
+        op = op_lookup(op)
+        if comm.size > 1:
+            out = self._fast_allreduce(comm, x, op)
+            if out is not None:
+                return out
+        x = _leaf_check(comm, x)
+        if comm.size == 1 and not _force_allreduce.value:
+            return x
+        return self._allreduce_choice(comm, x, op)[1](x)
 
     def allgather(self, comm, x):
         x = rank_major_check(comm, x)

@@ -26,7 +26,7 @@ __global__ void __launch_bounds__(kThreads)
                                   T* __restrict__ out, T* comm, int* sems,
                                   int n, int stripes, long long W,
                                   long long seg, int n_segs) {
-  ring_schedule<T, OP, true, PH_BOTH>(x, out, comm, sems, n, stripes, W,
+  ring_schedule<T, OP, true>(x, out, comm, sems, n, stripes, W,
                                       seg, n_segs);
 }
 

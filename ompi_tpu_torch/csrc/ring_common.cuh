@@ -4,7 +4,7 @@
 // (its addresses, stores, flags and launch), 16-byte vector combines, L2
 // cache policies for data another block reads after a flag, the
 // fold-then-forward ring (either ring direction), the two-pass ring
-// schedule (allgather, or reduce-scatter then allgather), the byte
+// schedule (reduce-scatter then allgather, the chunked ring's), the byte
 // copies of the data-movement kernels and the cooperative launch.
 //
 // Ranks on one card. A rank-major buffer holds n virtual ranks in one
@@ -503,39 +503,30 @@ __device__ __forceinline__ void ring_fused(const uint4* __restrict__ x,
   }
 }
 
-// ---- the ring schedule -----------------------------------------------------
+// ---- the ring schedule (ring_allreduce_chunked) --------------------------
 
 // Flag slots per (rank, stripe).
 enum RingFlag { F_RECV = 0, F_CAP = 2, F_SEG = 4, RING_NSEM = 5 };
 
-// Which halves of the ring a schedule runs: n-1 allgather steps alone,
-// or n-1 reduce-scatter steps before them (the allreduce). The
-// reduce-scatter alone has its own kernel (ring_reduce_scatter.cu).
-enum RingPhase { PH_RS = 1, PH_AG = 2, PH_BOTH = 3 };
-
 // Block (r, s) of the grid plays rank r on column stripe s of every ring
-// block of W columns and sends to rank r+1. Rank-major layouts: x is (n
-// ranks, n blocks, W)
-// and out the same for PH_BOTH; PH_AG reads x (n, W), each rank's own
-// block, and writes out (n, n, W). comm
-// is (n, stripes, 2, sw); sems is (n, stripes, RING_NSEM). The ring runs
-// segment by segment over `seg` columns; with SEGMENTED a per-segment
-// credit keeps a rank from starting segment i+1 into its right
-// neighbour's slots before that neighbour has drained segment i.
+// block of W columns and sends to rank r+1: n-1 reduce-scatter steps, then
+// n-1 allgather steps. Rank-major layouts: x and out are (n ranks, n
+// blocks, W); comm is (n, stripes, 2, sw); sems is (n, stripes,
+// RING_NSEM). The ring runs segment by segment over `seg` columns; with
+// SEGMENTED a per-segment credit keeps a rank from starting segment i+1
+// into its right neighbour's slots before that neighbour has drained
+// segment i.
 //
 // Credits: a rank credits slot `slot` to its left neighbour right after
 // the send FROM that slot (every step but the last), not after filling
 // it as the reference does; the left neighbour spends the credit writing
-// that slot one step later. There is no post-seed credit, so a
-// two-rank PH_AG ring (one step) has no credit at all.
-template <typename T, int OP, bool SEGMENTED, int PHASE>
+// that slot one step later. There is no post-seed credit.
+template <typename T, int OP, bool SEGMENTED>
 __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
                                               T* __restrict__ out, T* comm,
                                               int* sems, int n, int stripes,
                                               long long W, long long seg,
                                               int n_segs) {
-  constexpr bool kRS = (PHASE & PH_RS) != 0;
-  static_assert((PHASE & PH_AG) != 0, "a ring schedule ends in allgather");
   const int r = blockIdx.x / stripes;
   const int s = blockIdx.x % stripes;
   const int left = (r - 1 + n) % n;
@@ -545,7 +536,7 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
   const long long sw = (seg + stripes - 1) / stripes;
   const long long c0 = (long long)s * sw;
   const long long cw = c0 < seg ? (seg - c0 < sw ? seg - c0 : sw) : 0;
-  const int rs_steps = kRS ? n - 1 : 0;
+  const int rs_steps = n - 1;
   const int nsteps = rs_steps + n - 1;
 
   T* my_comm = comm + ((long long)r * stripes + s) * 2 * sw;
@@ -553,7 +544,7 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
   int* my_sem = sems + (r * stripes + s) * RING_NSEM;
   int* left_sem = sems + (left * stripes + s) * RING_NSEM;
   int* right_sem = sems + (right * stripes + s) * RING_NSEM;
-  const T* xr = x + (long long)r * (kRS ? n : 1) * W;
+  const T* xr = x + (long long)r * n * W;
   T* outr = out + (long long)r * n * W;
   T* own = outr + (long long)r * W;  // this rank's own finished block
 
@@ -561,14 +552,10 @@ __device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
   for (int si = 0; si < n_segs; ++si) {
     const long long off = (long long)si * seg + c0;
     if (SEGMENTED) wait(my_sem + F_SEG, 1);
-    // Seed: slot 0 holds this rank's partial of block (r - 1), or, for
-    // an allgather alone, its own block, which is also its output.
-    const T* seed = kRS ? xr + (long long)left * W + off : xr + off;
-    for (long long j = threadIdx.x; j < cw; j += blockDim.x) {
-      const T v = seed[j];
-      st_cg(my_comm + j, v);
-      if (!kRS) own[off + j] = v;
-    }
+    // Seed: slot 0 holds this rank's partial of block (r - 1).
+    const T* seed = xr + (long long)left * W + off;
+    for (long long j = threadIdx.x; j < cw; j += blockDim.x)
+      st_cg(my_comm + j, seed[j]);
     for (int step = 0; step < nsteps; ++step) {
       const int slot = step & 1, nslot = slot ^ 1;
       if (step >= 1) wait(my_sem + F_CAP + nslot, 1);
@@ -694,19 +681,6 @@ inline int launch_cooperative(const void* fn, int blocks, void** args,
 }
 
 }  // namespace ompi_ring
-
-// Instantiate KERNEL<T> for the dtype code (kernels that only move data)
-// and return it as a launchable pointer (nullptr for an unknown code).
-#define OMPI_DTYPE_PICK(KERNEL)                                       \
-  [](int dt) -> const void* {                                         \
-    using namespace ompi_ring;                                        \
-    switch (dt) {                                                     \
-      case DT_F32: return (const void*)KERNEL<float>;                 \
-      case DT_BF16: return (const void*)KERNEL<__nv_bfloat16>;        \
-      case DT_I32: return (const void*)KERNEL<int>;                   \
-      default: return nullptr;                                        \
-    }                                                                 \
-  }
 
 // Instantiate KERNEL<T, OP> for the (op, dtype) codes and return it as a
 // launchable pointer (nullptr for an unknown pair).

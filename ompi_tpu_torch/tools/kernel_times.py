@@ -25,10 +25,12 @@ events, after two warm-ups) of, at n = 8:
   ``sched_pallas_ring_seg`` at 1 GiB per rank and ``sched_pallas_rs`` at
   1 GiB sent per rank (float32 SUM);
 - ``ring_allreduce_chunked`` at 1 GiB per rank (float32 SUM, 1 MiB
-  segments), ``selfdma_chunked`` at 1 GiB on one rank,
-  ``ring_allgather`` at 128 MiB sent per rank, ``ring_alltoall`` at
-  1 GiB sent per rank, ``linear_gather`` at 1 GiB per rank (root 3),
-  ``quant_allreduce`` at 1 GiB per rank (float32 SUM);
+  segments), ``selfdma_chunked`` at 1 GiB and 4 KiB on one rank,
+  ``ring_allgather`` at 128 MiB and 512 B sent per rank (1 GiB and 4 KiB
+  received), ``ring_alltoall`` at 1 GiB sent per rank, ``linear_gather``
+  at 1 GiB per rank (root 3), ``quant_allreduce`` at 1 GiB per rank
+  (float32 SUM), ``allreduce_block_rsag`` (the reduce-scatter, then the
+  allgather) at 1 GiB per rank (float32 SUM, 5 launches);
 - ``ppermute_shift`` at 8 MiB per rank (bfloat16, shift 1) and
   ``ring_attention_block`` at 32 heads of 128, T = 512 per rank,
   bfloat16, causal.
@@ -132,6 +134,8 @@ def main() -> int:
     out["ring_allreduce_chunked_1GiB_ms"] = p50(
         lambda: pr.ring_allreduce_chunked(inp, "sum", seg))
     out["linear_gather_1GiB_ms"] = p50(lambda: pr.linear_gather(x, 3))
+    out["allreduce_block_rsag_1GiB_ms"] = p50(
+        lambda: pr.allreduce_block_rsag(x, "sum"), 5)
     from ompi_tpu_torch.coll import quant
 
     quantum = N * 128 * 128  # allreduce_block_quant's padding
@@ -152,6 +156,11 @@ def main() -> int:
     out["ring_allgather_128MiB_ms"] = p50(lambda: pr.ring_allgather(ag))
     del ag
     torch.cuda.empty_cache()
+    ag = torch.randn((N, 4 * KIB // 4 // N), generator=gen, device="cuda")
+    out["ring_allgather_512B_ms"] = p50(lambda: pr.ring_allgather(ag))
+    one = torch.randn((1, 4 * KIB // 4), generator=gen, device="cuda")
+    out["selfdma_chunked_4KiB_ms"] = p50(
+        lambda: pr.selfdma_chunked(one, 4 * KIB // 4))
 
     hop = torch.randn((N, 4 * MIB), generator=gen, device="cuda").to(
         torch.bfloat16)

@@ -77,10 +77,11 @@ def p50_host_ms(fn, reps=REPS) -> float:
 
 def profile(fn, kernel: str = "ring_allreduce", trace: str = TRACE) -> dict:
     """p50s (ms) of one call's pieces, read from the profiler's trace:
-    the device time of each kernel the call launches (the one whose name
-    holds ``kernel`` as "kernel device"), the host time of its launch
-    call, and the gaps from the call's start and from the launch call to
-    that kernel's start."""
+    the device time of each kernel (or device-to-device copy, as
+    ``x.clone()`` makes one) the call launches (the one whose name holds
+    ``kernel`` as "kernel device"), the host time of its launch call, and
+    the gaps from the call's start and from the launch call to that
+    kernel's start."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx, \
         record_function
 
@@ -101,7 +102,8 @@ def profile(fn, kernel: str = "ring_allreduce", trace: str = TRACE) -> dict:
     runtime = {e["args"]["correlation"]: e for e in events
                if e.get("cat") == "cuda_runtime" and "correlation" in
                e.get("args", {})}
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    kernels = [e for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy")]
     if not kernels:
         return {"device_events": 0}
     pieces: dict = {}

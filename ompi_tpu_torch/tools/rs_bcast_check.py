@@ -107,8 +107,8 @@ def sweep(x, blocks, small) -> None:
                 if cluster:  # within shared memory, as many as fit
                     if (n - 2) * pr.RS_BUFS * seg > pr.RS_SMEM_BYTES:
                         continue
-                    stripes = min(stripes, pr._rs_clusters(n, threads, seg,
-                                                           0))
+                    stripes = min(stripes, pr._clusters(
+                        "ring_reduce_scatter", n, threads, seg, 0))
                 run = (lambda stripes=stripes, threads=threads, seg=seg,
                        cluster=cluster: pr._rs_launch(
                            blocks, "sum", stripes, threads, seg, cluster))
@@ -193,8 +193,8 @@ def main() -> int:
         plan = pr.RS.last_plan
         fits = ""
         if cluster:  # the launch takes as many stripes as clusters fit
-            clusters = pr._rs_clusters(N, plan["threads"],
-                                       plan["segment_bytes"], 0)
+            clusters = pr._clusters("ring_reduce_scatter", N,
+                                    plan["threads"], plan["segment_bytes"], 0)
             fits = f" ({clusters} clusters fit)"
         lib = p50(lambda: blocks.sum(0))
         where = "shared memory" if cluster else "L2"

@@ -188,7 +188,33 @@ def test_bcast_and_reduce_scatter_match_plain_at_several_segments(cuda, n,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["ring", "tree", "bcast", "rs", "rs-l2"])
+@pytest.mark.parametrize("dtype", sorted(TDT) + ["float16", "float64", "int8"])
+@pytest.mark.parametrize("n", [2, 3, 8, 12])
+def test_allgather_matches_plain_at_several_segments(cuda, n, dtype):
+    """The allgather's wavefront at ragged blocks of fewer segments than
+    its n - 1 steps and of many, with the plan's stripes and with one,
+    its buffers where the plan puts them (a cluster's shared memory up to
+    n = 8, L2 at n = 12) and in L2: bitwise its plain version and every
+    rank's block, every flag at 0. It copies bytes: any dtype."""
+    elem = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    seg = pr.AG_SEG_BYTES // elem
+    for C in (3 * seg - 100, 40 * seg + 77):
+        x = _input(n, C, "int32", cuda).to(getattr(torch, dtype))
+        want = pr.ring_allgather_plain(x)
+        assert torch.equal(want, x.unsqueeze(0).expand(n, n, C))
+        for stripes in (None, 1):
+            for cluster in (None, False):
+                got = _launched_once(pr.AG, lambda: pr._ag_launch(
+                    x, stripes=stripes, cluster=cluster))
+                assert pr.AG.last_plan["buffers"] == (
+                    "cluster shared memory" if n <= 8 and cluster is None
+                    else "L2")
+                assert torch.equal(got, want), (n, C, stripes, cluster)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["ring", "tree", "bcast", "rs", "rs-l2",
+                                    "ag", "ag-l2"])
 def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
                                                                 kernel):
     """50 back-to-back launches at n = 8 give the same bits, every flag
@@ -204,6 +230,10 @@ def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
     elif kernel == "bcast":
         x = _input(8, 3 * pr.BCAST_SEG_BYTES // 4 + 5000, "float32", cuda)
         run, counter = (lambda: pr.tree_bcast(x, 3)), pr.TREE_BCAST
+    elif kernel.startswith("ag"):  # its buffers in shared memory, or L2
+        x = _input(8, 40 * pr.AG_SEG_BYTES // 4 + 77, "float32", cuda)
+        cluster = kernel == "ag"
+        run, counter = (lambda: pr._ag_launch(x, cluster=cluster)), pr.AG
     else:  # the reduce-scatter's buffers in shared memory, or in L2
         C = 40 * pr.RS_SEG_BYTES // 4 + 77
         x = _input(8, 8 * C, "float32", cuda).reshape(8, 8, C)
@@ -267,7 +297,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ArgumentError):
         pr.ring_allreduce(x.float(), "land")
     with pytest.raises(ArgumentError):
-        pr.ring_allgather(x[:, 0])
+        pr.ring_allgather(x)  # (n, n, C): not one block per rank
     with pytest.raises(ArgumentError):
         pr.tree_bcast(x[:, 0].float(), root=2)
     with pytest.raises(ArgumentError):
@@ -367,6 +397,23 @@ def test_selfdma_chunked_matches_plain_on_card(cuda, dtype):
     got = _launched_once(pr.SELFDMA, lambda: pr.allreduce_block_chunked(
         y, "sum", 4096))
     assert torch.equal(got, y) and got.data_ptr() != y.data_ptr()
+
+
+@pytest.mark.gpu
+def test_selfdma_bulk_pipeline_at_several_plans(cuda):
+    """The bulk-copy pipeline with pieces of 16 B to 48 KiB and one or
+    two blocks per SM (one piece per block, many, a last short piece),
+    a tail of fewer than 16 bytes, and a buffer that is not 16-byte
+    aligned (the threads' element copies): each a new tensor equal to its
+    input."""
+    x = _input(1, 3 * 49152 + 1001, "int32", cuda).to(torch.int8)
+    for piece in (16, 4096, 16384, 49152):
+        for per_sm in (1, 2):
+            for view in (x[:, :4096], x, x[:, 3:]):
+                got = _launched_once(pr.SELFDMA, lambda: pr._selfdma_launch(
+                    view, piece, per_sm))
+                assert pr.SELFDMA.last_plan["piece_bytes"] == piece
+                assert torch.equal(got, view), (piece, per_sm, view.shape)
 
 
 # Rows per ring block for the quant kernel: rows % 128 == 0, and at n = 2

@@ -13,7 +13,8 @@ against the JAX package's Pallas kernels and a numpy ring-order oracle.
   oracle that folds each block in ring order (bfloat16 through
   ml_dtypes, which also computes in float32 and rounds once). Exact.
 - Interleavings: the ring and chunked simulators, the ring's two
-  halves (reduce-scatter and allgather alone) and the bidirectional
+  halves (the reduce-scatter's two-pass schedule and the allgather
+  kernel's wavefront, ``simulate_ring_ag_fused``) and the bidirectional
   ring, under 200 seeded random schedules at n in {3, 4, 8} must give
   the lock-step result exactly with every flag back at 0; the
   reference's credit placement in the same simulator must fail (the
@@ -246,7 +247,10 @@ def _ring_case(kernel, n):
     elif kernel == "rs":
         kw0 = dict(phase="rs")
     elif kernel == "ag":
-        x, kw0 = blocks[:, 0].contiguous(), dict(phase="ag")
+        # the allgather kernel's wavefront over four segments; its credit
+        # "reference" runs the JAX package's two-pass schedule
+        own = blocks[:, 0].contiguous()
+        return lambda **kw: pr.simulate_ring_ag_fused(own, seg_cols=64, **kw)
     return lambda **kw: pr.simulate_ring(x, op, **kw0, **kw)
 
 
