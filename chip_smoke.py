@@ -20,11 +20,13 @@ skipped and the causal ring's thread blocks split by fold work). The
 tree reduce and the tree bcast are segmented "get" trees (a rank reads
 its children's, or its parent's, finished row segment by segment after
 that segment's flag, every round at once); the whole-payload ring, the
-bidirectional ring (in each direction), the reduce-scatter and the
-table kernel fold and forward in one pass per step, the reduce-scatter
-and the table kernel in a wavefront over segments, one thread-block
-cluster per stripe up to 8 ranks with their buffers in the reading
-rank's shared memory (in L2 beyond).
+bidirectional ring (in each direction), the chunked ring, the
+reduce-scatter and the table kernel fold and forward in one pass per
+step, the chunked ring, the reduce-scatter, the allgather and the table
+kernel in a wavefront over segments, one thread-block cluster per stripe
+up to 8 ranks with their buffers in the reading rank's shared memory (in
+L2 beyond); the scatter streams root's rows in pieces over nearly the
+whole card, each piece counted on its receiver's flag.
 
 Phases (any failure raises and exits non-zero):
 
@@ -48,9 +50,13 @@ Phases (any failure raises and exits non-zero):
    scatter for the three dtypes (gather, scatter and bcast at roots 0
    and n-1; the allgather also with one stripe over 41 segments and with
    the plan's stripes at n in {3, 8}, its buffers in a cluster's shared
-   memory and in L2, and at n = 12 in L2), and the three data movers and
-   the allgather for float64, float16 and int8 at odd row widths (their
-   element-sized copies); ``sched_table`` on
+   memory and in L2, and at n = 12 in L2), the chunked ring likewise (one
+   stripe and the plan's over 41 segments, at n in {3, 8} in either
+   memory and at n = 12 in L2, every op and dtype), and the three data
+   movers and the allgather for float64, float16 and int8 at odd row
+   widths (their element-sized copies), the scatter also with pieces of
+   16 and 48 bytes on unaligned rows at n in {3, 8, 12} (the ragged head
+   and tail copied byte by byte inside the kernel); ``sched_table`` on
    eight programs (ring, ring with a non-identity order, segmented
    ring at 2 and 4 segments, reduce-scatter, allgather, a 3-member
    ``fuse_schedules``, a ``fuse_window``) at n in {2, 3, 4, 8, 12},
@@ -176,15 +182,19 @@ Phases (any failure raises and exits non-zero):
    ``x.sum(0, keepdim=True).expand_as(x).contiguous()`` is timed beside
    it as ``exact_sum_ms``, for context, with the two TunedColl route
    p50s of the quant path (``quant_ring_ms``, ``exact_route_ms``).
-   ``ring_allreduce_bidir``'s, ``sched_table``'s and
-   ``selfdma_chunked``'s rows carry the plan their timed launches ran
-   (``plan``: stripes, threads, and for the table its segments and the
-   buffers' memory; blocks and piece bytes), the reduce-scatter's and the
-   allgather's its fields (stripes, threads, segment bytes, the buffers'
-   memory and bytes). ``ring_allgather``'s ``also`` list holds its L2
-   form at n = 12 (about 1 GiB received per rank) and
-   ``allreduce_block_rsag`` at 1 GiB per rank, each beside its bound and
-   library call. ``sched_table``'s row is
+   ``ring_allreduce_bidir``'s, ``ring_allreduce_chunked``'s,
+   ``linear_scatter``'s, ``sched_table``'s and ``selfdma_chunked``'s rows
+   carry the plan their timed launches ran (``plan``: stripes, threads,
+   and for the chunked ring and the table its segments and the buffers'
+   memory; for the scatter its senders, receivers, threads and pieces;
+   blocks and piece bytes), the reduce-scatter's and the allgather's its
+   fields (stripes, threads, segment bytes, the buffers' memory and
+   bytes). ``ring_allgather``'s ``also`` list holds its L2 form at n = 12
+   (about 1 GiB received per rank) and ``allreduce_block_rsag`` at 1 GiB
+   per rank, each beside its bound and library call;
+   ``ring_allreduce_chunked``'s holds its L2 form at n = 12 (about 1 GiB
+   per rank) and ``allreduce_block_rsag`` at 1 GiB per rank, the same
+   function, timed beside it. ``sched_table``'s row is
    the segmented-ring program at 1 GiB per rank; its ``also`` list
    holds the ring program at 1 MiB (beside ``ring_allreduce``, the same
    protocol hard-coded) and the reduce-scatter program at 1 GiB sent
@@ -511,6 +521,34 @@ def kernel_vs_plain(pr, gen) -> None:
         f"{checked} cases bitwise equal, all semaphores 0 "
         f"({time.time() - t0:.1f} s)")
 
+    # The chunked ring's wavefront likewise: one stripe and the plan's
+    # over 41 segments, blocks that are not whole vectors, its buffers in
+    # a cluster's shared memory and in L2 up to n = 8 and in L2 at n = 12.
+    t0 = time.time()
+    checked = 0
+    ch_seg = pr.CHUNKED_CLUSTER_SEG_BYTES // 4
+    for n, clusters in ((3, (True, False)), (8, (True, False)),
+                        (12, (False,))):
+        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+            W = 40 * ch_seg + 77
+            x = random_rank_major((n, n, W), dtype, gen)
+            for op in ("sum", "max", "min", "prod"):
+                want = pr.ring_allreduce_chunked_plain(x, op, W)
+                for cluster in clusters:
+                    for stripes in (1, None):
+                        got = pr._chunked_launch(x, op, stripes=stripes,
+                                                 cluster=cluster)
+                        torch.cuda.synchronize()
+                        check_sems(KERNELS["ring_allreduce_chunked"])
+                        equal_or_raise(got, want, f"ring_allreduce_chunked "
+                                       f"n={n} {dtype} {op} stripes={stripes}"
+                                       f" cluster={cluster}")
+                        checked += 1
+    log(f"[kernel-vs-plain] ring_allreduce_chunked with one stripe and the "
+        f"plan's over 41 segments and at n = 12, buffers in shared memory "
+        f"and in L2: {checked} cases bitwise equal, all semaphores 0 "
+        f"({time.time() - t0:.1f} s)")
+
     # The bidirectional ring at other plans (stripes x threads, as the
     # sweep takes them, the plan's among them) and on halves that are not
     # whole 16-byte vectors (35 columns), at the main path's 1 MiB too.
@@ -568,6 +606,27 @@ def kernel_vs_plain(pr, gen) -> None:
     log(f"[kernel-vs-plain] data movers (and the allgather) at other "
         f"element sizes: {checked} "
         f"cases bitwise equal, all semaphores 0 ({time.time() - t0:.1f} s)")
+
+    # The scatter's pieces of 16 and 48 bytes on rows that are not whole
+    # vectors and start off a row: the ragged head and tail of every
+    # piece copied byte by byte inside the kernel.
+    t0 = time.time()
+    checked = 0
+    for n in (3, 8, 12):
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            x = random_rank_major((n, 1002), dtype, gen)
+            buf = x[:, 1:]
+            want = pr.linear_scatter_plain(buf, n - 1)
+            for piece in (16, 48):
+                got = pr._scatter_launch(buf, n - 1, piece)
+                torch.cuda.synchronize()
+                check_sems(KERNELS["linear_scatter"])
+                equal_or_raise(got, want, f"linear_scatter n={n} {dtype} "
+                               f"pieces of {piece} B")
+                checked += 1
+    log(f"[kernel-vs-plain] linear_scatter with pieces of 16 and 48 bytes "
+        f"on unaligned rows: {checked} cases bitwise equal, all semaphores "
+        f"0 ({time.time() - t0:.1f} s)")
 
 
 def table_programs(ir, pl, n):
@@ -1997,10 +2056,12 @@ def measure(pr, gen, errs, launches) -> list:
                 f"{plan['buffer_bytes']} B in {plan['buffers']}")
         if kernel == "ring_allgather":
             extra += ag_also(pr, gen, row)
+        if kernel == "ring_allreduce_chunked":
+            extra += chunked_also(pr, gen, row)
         if kernel == "selfdma_chunked":
             extra += selfdma_split(pr, gen, row)
-        if kernel in ("ring_allreduce_bidir", "sched_table",
-                      "selfdma_chunked"):
+        if kernel in ("ring_allreduce_bidir", "ring_allreduce_chunked",
+                      "linear_scatter", "sched_table", "selfdma_chunked"):
             row["plan"] = plan
             log(f"[plan] {kernel} at {nbytes} B/rank: {plan}")
         if kernel == "sched_table":
@@ -2066,6 +2127,43 @@ def ag_also(pr, gen, row) -> str:
             f"library {l2['library_ms']:.4f}); allreduce_block_rsag at "
             f"{GIB} B/rank {rsag['ms']:.4f} ms (library "
             f"{rsag['library_ms']:.4f})")
+
+
+def chunked_also(pr, gen, row) -> str:
+    """The chunked ring's L2 form at n = 12 (about 1 GiB per rank, whole
+    1 MiB layout segments) beside its bound and library call, and
+    ``allreduce_block_rsag`` (the reduce-scatter, then the allgather: the
+    same function and bits) at 1 GiB per rank, n = 8: p50s into
+    ``row["also"]``; returns the log text."""
+    import torch
+
+    n = 12
+    size = GIB // (n * MIB) * n * MIB // 4  # float32 per rank
+    rows, seg_rows = pr._chunked_layout(size, n, torch.float32, MIB)
+    x = random_rank_major((n, size), torch.float32, gen)
+    blocks = x.reshape(n, n, rows * pr.LANES)
+    l2 = {"nranks": n, "bytes_per_rank": size * 4,
+          "ms": p50_ms(lambda: pr.ring_allreduce_chunked(
+              blocks, "sum", seg_rows * pr.LANES), KERNEL_REPS),
+          "plan": dict(pr.CHUNKED.last_plan),
+          "bound_ms": 2 * n * size * 4 / HBM_BYTES_PER_S * 1e3,
+          "bound_by": "bytes",
+          "library_ms": p50_ms(lambda: x.sum(0, keepdim=True).expand_as(
+              x).contiguous(), KERNEL_REPS)}
+    del x, blocks
+    torch.cuda.empty_cache()
+    x = random_rank_major((N, GIB // 4), torch.float32, gen)
+    rsag = {"function": "allreduce_block_rsag", "nranks": N,
+            "bytes_per_rank": GIB,
+            "ms": p50_ms(lambda: pr.allreduce_block_rsag(x, "sum"), 5),
+            "bound_ms": 2 * N * GIB / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+    del x
+    torch.cuda.empty_cache()
+    row["also"] = [l2, rsag]
+    return (f"; n = 12 (L2) {l2['ms']:.4f} ms (bound {l2['bound_ms']:.4f}, "
+            f"library {l2['library_ms']:.4f}); allreduce_block_rsag at "
+            f"{GIB} B/rank {rsag['ms']:.4f} ms")
 
 
 def device_ms(split: dict) -> float:

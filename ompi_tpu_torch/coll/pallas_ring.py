@@ -14,8 +14,11 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
   log2 n rounds with one slot and one flag per round, rank-ordered
   combine.
 - ``ring_allreduce_chunked`` (``_allreduce_chunked_kernel``): the ring
-  streamed in segments with a per-segment credit, so comm scratch stays
-  at n·2·segment bytes however large the message; at n == 1
+  streamed in segments, so comm scratch stays bounded however large the
+  message: the 2(n-1) steps of ``ring_allreduce``'s one-pass body in a
+  wavefront over segments (``simulate_ring_chunked``), the values handed
+  over in a thread-block cluster's shared memory up to 8 ranks, beyond
+  in buffers that fit in L2; at n == 1
   ``selfdma_chunked`` (``_selfdma_chunked_kernel``), the identity, runs
   the reference's three stages (in, the copy to itself, out) as bulk
   copies through two pairs of shared-memory slots, pipelined.
@@ -44,10 +47,14 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
   (``simulate_ring_bidir``).
 - ``ring_alltoall`` (``_alltoall_kernel``): pairwise exchange, one flag
   per step per receiver; it moves bytes, so it takes any dtype.
-- ``linear_gather`` (``_gather_kernel``) and ``linear_scatter``
-  (``_scatter_kernel``): every sender stores into root's rows after
-  root's ready credit, one flag per sender; root stores into every
-  receiver's row, no handshake. Both move bytes, any dtype.
+- ``linear_gather`` (``_gather_kernel``): every sender stores into
+  root's rows after root's ready credit, one flag per sender. It moves
+  bytes, any dtype.
+- ``linear_scatter`` (``_scatter_kernel``): root's blocks, nearly the
+  whole card, stream every row in pieces, all rows at once, drawn from
+  a ticket counter, each piece counted on its receiver's flag; a
+  receiver only waits for its count, no handshake
+  (``simulate_scatter``). It moves bytes, any dtype.
 - ``ppermute_shift`` (the inner kernel of ``ppermute_shift``): one ring
   hop, every rank's block stored into rank me+shift's row, one flag per
   receiver; it moves bytes, any dtype. Ring attention's KV hop is
@@ -72,7 +79,8 @@ interleavings; the tests show the reference's placement fails there and
 the port's does not.
 
 Plain versions: ``simulate_ring``/``simulate_ring_fused``/
-``simulate_ring_rs_fused``/``simulate_ring_ag_fused``/``simulate_rd``/
+``simulate_ring_rs_fused``/``simulate_ring_ag_fused``/
+``simulate_ring_chunked``/``simulate_rd``/
 ``simulate_tree_*``/
 ``simulate_ring_bidir``/``simulate_alltoall``/``simulate_gather``/
 ``simulate_scatter``/``simulate_ppermute`` run the same slot and flag
@@ -97,6 +105,7 @@ import functools
 import random
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -137,8 +146,6 @@ LANES = 128
 #: Columns of a ring block (or segment) per thread block of one rank:
 #: the kernels stripe each rank's work over blocks of this width.
 STRIPE_COLS = 4096
-#: Flags per (rank, stripe) of the ring kernels: recv[2], cap[2], seg.
-RING_NSEM = 5
 #: Bytes of a ring block that one thread block of ``ring_allreduce``
 #: takes at least (``_ring_plan``).
 RING_STRIPE_BYTES = 8192
@@ -188,6 +195,33 @@ RS_SMEM_BYTES, RS_SLOT_BYTES = 48 << 10, 24 << 20
 AG_CLUSTER_SEG_BYTES, AG_CLUSTER_THREADS, AG_CLUSTER_BLOCKS_PER_SM = \
     4 << 10, 256, 4
 AG_SEG_BYTES, AG_THREADS, AG_BLOCKS_PER_SM = 4 << 10, 256, 2
+#: The chunked ring's plans (csrc/ring_allreduce_chunked.cu,
+#: ``_chunked_plan``), in the reduce-scatter's two forms; a block keeps
+#: (2n-3) x RS_BUFS buffers, so its shared memory holds fewer segments:
+#: the blocks of an SM share ``CHUNKED_SMEM_BYTES``. The sweep at 1 GiB
+#: per rank, n = 8, on an NVIDIA H100 (PERF.md,
+#: tools/scatter_chunked_check.py): in shared memory 7.84 ms at 2 KiB
+#: segments, 128 threads x 4 blocks per SM (4 KiB with 256 x 2 8.39, with
+#: 512 x 1 11.11; 2 KiB with 256 x 2 10.75, with 512 x 1 18.90; 1 KiB
+#: with 128 x 4 10.59, with 256 x 2 19.82); in L2 11.22 at 8 KiB with 512
+#: x 1, 11.49 at 4 KiB with 256 x 2, 11.68 at 2 KiB with 128 x 4, 13.22 at
+#: 4 KiB with 512 x 1; ``allreduce_block_rsag`` 8.70 and the library 12.30
+#: in another run.
+CHUNKED_CLUSTER_SEG_BYTES, CHUNKED_CLUSTER_THREADS, \
+    CHUNKED_CLUSTER_BLOCKS_PER_SM = 2 << 10, 128, 4
+CHUNKED_SEG_BYTES, CHUNKED_THREADS, CHUNKED_BLOCKS_PER_SM = 4 << 10, 256, 2
+CHUNKED_SMEM_BYTES = 216 << 10
+#: The linear scatter's plan (csrc/linear_scatter.cu, ``_scatter_plan``):
+#: bytes of a piece of a row, threads per block and blocks per SM; root
+#: takes every block but the n - 1 receivers'. Sweeps at 1 GiB per rank,
+#: n = 8, on an NVIDIA H100 (PERF.md, tools/scatter_chunked_check.py),
+#: root's blocks drawing pieces from a ticket counter: 64 KiB x 256
+#: threads x 2 per SM 5.748-5.755 ms, 512 x 2 5.768-5.804, 1024 x 1
+#: 5.836-5.838, 256 KiB pieces 5.83-5.90, 16 KiB 6.32, eight loads in
+#: flight or evict-first hints within 1%; ``x.clone()`` 5.675-5.696 in the
+#: same runs. A fixed share of pieces per block took 5.94-6.12.
+SCATTER_PIECE_BYTES, SCATTER_THREADS, SCATTER_BLOCKS_PER_SM = \
+    64 << 10, 256, 2
 #: Bytes of a piece of ``selfdma_chunked``'s bulk-copy pipeline (its
 #: shared memory holds four) and its blocks per SM. Sweeps at 1 GiB on an
 #: NVIDIA H100 (PERF.md, tools/ag_selfdma_check.py): 8 KiB x 4 0.753-0.786
@@ -198,9 +232,9 @@ SELFDMA_PIECE_BYTES, SELFDMA_BLOCKS_PER_SM = 8 << 10, 4
 #: wavefronts, one for each parity of the time slot
 #: (``simulate_ring_rs_fused``, ``simulate_ring_ag_fused``).
 RS_BUFS = 2
-#: Most segments per row (or ring block) in the plain versions of the
-#: segmented bcast and reduce-scatter: the simulators take a Python step
-#: per segment, and no bit depends on the segment.
+#: Most segments (or pieces) per row or ring block in the plain versions
+#: of the segmented kernels: the simulators take a Python step per
+#: segment, and no bit depends on the segment.
 PLAIN_SEGS = 64
 
 RING = KernelCounter("ring_allreduce")
@@ -627,6 +661,119 @@ def simulate_ring_ag_fused(x: torch.Tensor, *,
     return out, _residue(sems)
 
 
+#: numpy's counterparts of the predefined ops, elementwise in the same
+#: arithmetic as torch's on the CPU, for simulators that slice numpy
+#: views (several times faster to slice than tensors).
+_NP_COMBINE = {"sum": np.add, "prod": np.multiply, "max": np.maximum,
+               "min": np.minimum}
+
+
+def _np_combine(x: torch.Tensor, op: Op):
+    """numpy's combine for ``op`` on x's dtype where a simulator may run
+    on numpy views of CPU tensors (float32, int32), else None."""
+    if (x.device.type != "cpu" or x.dtype not in (torch.float32, torch.int32)
+            or not op.predefined):
+        return None
+    return _NP_COMBINE.get(op.name)
+
+
+def _ch_forwards(p: int, n: int, n_segs: int) -> bool:
+    """Whether time slot ``p`` of the chunked ring's wavefront has a pass
+    that forwards into the right neighbour's buffers: a step k in
+    0 .. 2n-4 whose segment p - k is in 0 .. n_segs-1."""
+    return p >= 0 and p - n_segs + 1 <= 2 * n - 4
+
+
+def simulate_ring_chunked(blocks: torch.Tensor, op: Op, *,
+                          seg_cols: Optional[int] = None, stripes: int = 1,
+                          credit: str = "after_read",
+                          rng: Optional[random.Random] = None):
+    """Run ``ring_allreduce_chunked``'s one-pass wavefront on (n, n, W)
+    blocks; returns ((n, n, W) out, residue) as ``simulate_ring`` does.
+    The columns are cut into ``stripes`` stripes, each a thread block of
+    every rank with its own buffers and flags (one program per (rank,
+    stripe)), and each stripe into segments of ``seg_cols`` columns (the
+    last ragged; default one). Step k of segment i at rank me is
+    ``simulate_ring_fused``'s step k on those columns: a reduce-scatter
+    step (k < n-1) folds ``combine(arrival, x[me][me-k-2])``, writing
+    out[me][me] at k = n-2; an allgather step stores the arrival to
+    out[me][me-(k-n+2)]; every step but the last stores its value into
+    the right's buffer for step k+1; step 0's arrival is the left's block
+    me-2 of its input. In time slot t rank me makes step k of segment
+    t - k for every k that has one, so the arrivals it reads were made in
+    the left's slot t - 1, in buffers (k, t mod 2). Waits and raises are
+    those of ``simulate_ring_rs_fused`` over 2(n-1) steps
+    (``_ch_forwards``), so every flag ends at 0. ``credit``
+    "before_read" credits a buffer to the left before the passes that
+    read it: the negative control. ``credit`` "reference" runs the JAX
+    package's schedule instead (``simulate_ring(segmented=True,
+    credit="reference")`` over segments of ``seg_cols``: a post-seed
+    credit, then a credit right after filling a slot)."""
+    if credit not in ("after_read", "before_read", "reference"):
+        raise ArgumentError(f"unknown credit placement {credit!r}")
+    if credit == "reference":
+        return simulate_ring(blocks, op, seg_cols, segmented=True,
+                             credit="reference", rng=rng)
+    n, W = _ring_blocks(blocks, True)
+    if stripes < 1:
+        raise ArgumentError(f"bad stripe count {stripes}")
+    sw = -(-W // stripes)
+    seg = sw if seg_cols is None else seg_cols
+    if seg <= 0:
+        raise ArgumentError(f"bad wavefront segment {seg}")
+    n_segs = max(1, -(-sw // seg))
+    nsteps = 2 * (n - 1)
+    out = torch.zeros_like(blocks)
+    comm = blocks.new_zeros((n, stripes, nsteps - 1, RS_BUFS, seg))
+    x, o, combine = blocks, out, _np_combine(blocks, op)
+    if combine is None:
+        combine = op.combine
+    else:  # numpy views: faster slices
+        x, o, comm = blocks.numpy(), out.numpy(), comm.numpy()
+    sems: dict = collections.defaultdict(int)
+
+    def fwd(p):
+        return _ch_forwards(p, n, n_segs)
+
+    def rank(me, s):
+        left, right = (me - 1) % n, (me + 1) % n
+        c0, c1 = min(W, s * sw), min(W, (s + 1) * sw)
+
+        def cols(i):
+            return slice(min(c1, c0 + i * seg), min(c1, c0 + (i + 1) * seg))
+
+        for t in range(n_segs + nsteps - 1):
+            if fwd(t - 1):
+                yield (me, s, "recv", t % 2), 1
+            if fwd(t) and fwd(t - 2):
+                yield (me, s, "cap", (t + 1) % 2), 1
+            credit_slot = fwd(t - 1) and fwd(t + 1)
+            if credit == "before_read" and credit_slot:
+                sems[left, s, "cap", t % 2] += 1
+                yield _PAUSE
+            for k in range(max(0, t - n_segs + 1), min(nsteps - 1, t) + 1):
+                c = cols(t - k)
+                w = c.stop - c.start
+                arrival = (x[left, (me - 2) % n, c] if k == 0
+                           else comm[me, s, k - 1, t % 2, :w])
+                if k < n - 1:
+                    val = combine(arrival, x[me, (me - k - 2) % n, c])
+                    if k == n - 2:
+                        o[me, me, c] = val
+                else:
+                    val = arrival
+                    o[me, (me - k + n - 2) % n, c] = val
+                if k < nsteps - 1:
+                    comm[right, s, k, (t + 1) % 2, :w] = val
+            if fwd(t):
+                sems[right, s, "recv", (t + 1) % 2] += 1
+            if credit == "after_read" and credit_slot:
+                sems[left, s, "cap", t % 2] += 1
+
+    _drive([rank(r, s) for s in range(stripes) for r in range(n)], sems, rng)
+    return out, _residue(sems)
+
+
 def simulate_ring_bidir(blocks: torch.Tensor, op: Op, *,
                         credit: str = "after_read",
                         rng: Optional[random.Random] = None,
@@ -750,37 +897,65 @@ def simulate_gather(flat: torch.Tensor, root: int = 0, *,
 
 
 def simulate_scatter(buf: torch.Tensor, root: int = 0, *,
-                     flags: str = "port",
+                     flags: str = "port", piece_cols: Optional[int] = None,
+                     senders: int = 1,
                      rng: Optional[random.Random] = None):
-    """Run the linear scatter of root's (n, L) buffer: root copies its
-    own row, then stores row root+s into rank root+s's output and
-    signals that rank's flag, for s = 1..n-1; a receiver only waits for
-    its flag. ``flags`` "shared" gives every receiver one flag (on one
-    card the ranks' flags share one memory). Returns (rank-major (n, L),
-    residue) as ``simulate_alltoall`` does."""
+    """Run the linear scatter of root's (n, L) buffer as its kernel
+    does: every row is cut into pieces of ``piece_cols`` columns (the
+    last ragged; default the whole row), piece p being row root + p % n,
+    chunk p // n, and root's ``senders`` programs (its thread blocks)
+    draw the pieces in that order from a ticket counter, as the
+    interleaving lets them run: a program stores its piece into the
+    destination rank's row and, for a receiver, raises that rank's flag
+    by one. A program that draws past the last piece counts itself done;
+    the last one done takes both counters back to 0. A receiver only
+    waits until its flag counts all of its row's pieces, and takes them
+    off. ``flags`` "shared" gives every receiver one flag (on one card
+    the ranks' flags share one memory), so one receiver's pieces can
+    satisfy another's wait. Returns (rank-major (n, L), residue) as
+    ``simulate_alltoall`` does: residue also holds every wait that
+    returned before its row had wholly landed."""
     _check_flags(flags)
-    n = buf.shape[0]
+    n, L = buf.shape
+    piece = max(L, 1) if piece_cols is None else piece_cols
+    if piece <= 0 or senders < 1:
+        raise ArgumentError(f"bad scatter plan: pieces of {piece} columns, "
+                            f"{senders} senders")
+    pieces = max(1, -(-L // piece))
     out = torch.empty_like(buf)
     sems: dict = collections.defaultdict(int)
     landed: set = set()
+    stored = collections.Counter()
 
     def flag(rank):
         return (rank if flags == "port" else None, "recv")
 
-    def rank(me):
-        if me == root:
-            out[me] = buf[me]
-            for q in range(1, n):
-                dst = (root + q) % n
-                out[dst] = buf[dst]
+    def sender():
+        while True:
+            p = sems["ticket"]
+            sems["ticket"] += 1
+            if p >= n * pieces:
+                break
+            q, c = p % n, p // n
+            dst = (root + q) % n
+            cols = slice(c * piece, min(L, (c + 1) * piece))
+            out[dst, cols] = buf[dst, cols]
+            stored[dst] += 1
+            if stored[dst] == pieces:
                 landed.add((dst, dst))
+            if q:
                 sems[flag(dst)] += 1
-                yield _PAUSE
-        else:
-            yield flag(me), 1
-            _early(sems, landed, me, me)
+            yield _PAUSE
+        sems["done"] += 1
+        if sems["done"] == senders:
+            sems["ticket"] = sems["done"] = 0
 
-    _drive([rank(r) for r in range(n)], sems, rng)
+    def receiver(me):
+        yield flag(me), pieces
+        _early(sems, landed, me, me)
+
+    _drive([sender() for _ in range(senders)]
+           + [receiver((root + q) % n) for q in range(1, n)], sems, rng)
     return out, _residue(sems)
 
 
@@ -1020,8 +1195,13 @@ def ring_allreduce_plain(blocks: torch.Tensor, op) -> torch.Tensor:
 
 def ring_allreduce_chunked_plain(blocks: torch.Tensor, op,
                                  seg_cols: int) -> torch.Tensor:
-    return _checked(simulate_ring(blocks, op_lookup(op), seg_cols,
-                                  segmented=True))
+    """The kernel's wavefront on one stripe. ``seg_cols`` is the
+    layout's segment, checked as the wrapper checks it; the pipeline's
+    segment is the plan's (no bit depends on it)."""
+    W = _chunked_width(blocks, seg_cols)
+    seg = _plain_seg(W, CHUNKED_CLUSTER_SEG_BYTES // blocks.element_size())
+    return _checked(simulate_ring_chunked(blocks, op_lookup(op),
+                                          seg_cols=seg))
 
 
 def ring_allreduce_rd_plain(flat: torch.Tensor, op) -> torch.Tensor:
@@ -1069,7 +1249,9 @@ def linear_gather_plain(flat: torch.Tensor, root: int) -> torch.Tensor:
 
 
 def linear_scatter_plain(buf: torch.Tensor, root: int) -> torch.Tensor:
-    return _checked(simulate_scatter(buf, root))
+    L = buf.shape[1]
+    piece = _plain_seg(L, max(1, SCATTER_PIECE_BYTES // buf.element_size()))
+    return _checked(simulate_scatter(buf, root, piece_cols=piece))
 
 
 def _flat_shift(x: torch.Tensor, shift: int) -> tuple[torch.Tensor, int]:
@@ -1092,9 +1274,10 @@ _LL = ctypes.c_longlong
 _ARGTYPES = {
     # x, out, comm, sems, n, stripes, threads, C, op, dtype, dev, stream
     "ring_allreduce": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P],
-    # x, out, comm, sems, n, stripes, W, seg, n_segs, op, dtype, dev, stream
-    "ring_allreduce_chunked":
-        [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, threads, block bytes, seg vectors,
+    # n_segs, cluster, op, dtype, dev, stream
+    "ring_allreduce_chunked": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I,
+                               _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, L, rounds, op, dtype, dev, stream
     "ring_allreduce_rd": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, threads, block bytes, seg vectors,
@@ -1119,7 +1302,9 @@ _ARGTYPES = {
     "ring_alltoall": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
     # x, out, comm, sems, n, stripes, L, root, elem size, dev, stream
     "linear_gather": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
-    "linear_scatter": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+    # buf, out, sems, n, row bytes, root, piece bytes, pieces per row,
+    # senders, threads, dev, stream
+    "linear_scatter": [_P, _P, _P, _I, _LL, _I, _LL, _I, _I, _I, _I, _P],
     # x, out, comm, sems, n, stripes, threads, tables, info, rounds,
     # nchunks, chunk bytes, seg vectors, n_segs, K, cluster, kind, op,
     # dtype, dev, stream
@@ -1235,15 +1420,18 @@ _SCRATCH: dict = {}
 def _scratch(x: torch.Tensor, stream: int, kind: str,
              count: int) -> torch.Tensor:
     """At least ``count`` int32 flags, all 0 (``kind`` "flags"), or
-    ``count`` bytes of comm slots ("comm"), for a launch on ``stream``."""
+    ``count`` bytes of comm slots ("comm"), for a launch on ``stream``.
+    A scratch too small grows in place: the kernel counters that hold it
+    as their last launch's flags see the grown one, and keep no smaller
+    one alive."""
     key = (x.device.index, stream, kind)
     buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < count:
-        if kind == "flags":
-            buf = torch.zeros(count, dtype=torch.int32, device=x.device)
-        else:
-            buf = torch.empty(count, dtype=torch.uint8, device=x.device)
+    if buf is None:
+        buf = torch.zeros(count, dtype=torch.int32 if kind == "flags"
+                          else torch.uint8, device=x.device)
         _SCRATCH[key] = buf
+    elif buf.numel() < count:
+        buf.resize_(count).zero_()
     return buf
 
 
@@ -1282,19 +1470,92 @@ def _ring_launch(blocks: torch.Tensor, op, stripes: Optional[int] = None,
     return out[..., :C].contiguous() if cols != C else out
 
 
+def _chunked_width(blocks: torch.Tensor, seg_cols: int) -> int:
+    """W of (n, n, W) chunked-ring blocks, whole segments of
+    ``seg_cols`` columns (the layout's)."""
+    _, W = _ring_blocks(blocks, True)
+    if seg_cols <= 0 or W % seg_cols:
+        raise ArgumentError(f"segment {seg_cols} does not divide {W}")
+    return W
+
+
 def ring_allreduce_chunked(blocks: torch.Tensor, op, seg_cols: int
                            ) -> torch.Tensor:
-    """The ring of ``ring_allreduce`` over (n, n, W) blocks, streamed in
-    segments of ``seg_cols`` columns with a per-segment credit."""
+    """The ring of ``ring_allreduce`` over (n, n, W) blocks, W whole
+    segments of ``seg_cols`` columns, streamed so that its scratch stays
+    bounded however large W is. ``seg_cols`` is the layout's segment
+    (``allreduce_block_chunked`` pads to whole ``coll_pallas_segment_bytes``
+    segments, which decides where ring blocks split, and so the bits of a
+    float sum) and the plan key's; the kernel's own pipeline segment is
+    its plan's (``_chunked_plan``), independent of it, and no bit depends
+    on that one."""
     op = op_lookup(op)
-    n, W = _ring_blocks(blocks, True)
-    if W % seg_cols:
-        raise ArgumentError(f"segment {seg_cols} does not divide {W}")
+    _chunked_width(blocks, seg_cols)
     if not blocks.is_cuda:
         return ring_allreduce_chunked_plain(blocks, op, seg_cols)
-    return _launch("ring_allreduce_chunked", CHUNKED, blocks, blocks.shape,
-                   seg_cols, 2 * n, RING_NSEM, (W, seg_cols, W // seg_cols),
-                   _codes(op, blocks.dtype))
+    return _chunked_launch(blocks, op)
+
+
+def _chunked_plan(n: int, block_bytes: int, sm_count: int,
+                  cluster: Optional[bool] = None
+                  ) -> tuple[int, int, int, bool]:
+    """``_wave_plan`` of ``ring_allreduce_chunked``: (2n-3) x RS_BUFS
+    buffers a block, the blocks of an SM within ``CHUNKED_SMEM_BYTES`` of
+    shared memory in the cluster form."""
+    return _wave_plan(n, block_bytes, sm_count, cluster, (
+        (CHUNKED_CLUSTER_SEG_BYTES, CHUNKED_CLUSTER_THREADS,
+         CHUNKED_CLUSTER_BLOCKS_PER_SM),
+        (CHUNKED_SEG_BYTES, CHUNKED_THREADS, CHUNKED_BLOCKS_PER_SM)),
+        bufs=2 * n - 3,
+        smem=CHUNKED_SMEM_BYTES // CHUNKED_CLUSTER_BLOCKS_PER_SM)
+
+
+def _chunked_launch(blocks: torch.Tensor, op, stripes: Optional[int] = None,
+                    threads: Optional[int] = None,
+                    seg_bytes: Optional[int] = None,
+                    cluster: Optional[bool] = None,
+                    defines: tuple = ()) -> torch.Tensor:
+    """Launch csrc/ring_allreduce_chunked.cu on (n, n, W) CUDA blocks with
+    the plan's stripes, threads, segment and buffer memory (shared memory
+    in clusters, or L2), or the ones given, as ``_rs_launch`` does.
+    ``CHUNKED.last_plan`` records what was launched."""
+    n, W = _ring_blocks(blocks, True)
+    codes = _codes(op_lookup(op), blocks.dtype)
+    cap = require_kernel_device(blocks)
+    vec = 16 // blocks.element_size()
+    cols = -(-W // vec) * vec  # ring blocks of whole 16-byte vectors
+    x = _aligned(blocks, cols)
+    c_bytes = cols * blocks.element_size()
+    plan = _chunked_plan(n, c_bytes, cap.sm_count, cluster)
+    threads, seg_bytes = threads or plan[1], seg_bytes or plan[2]
+    cluster = plan[3]
+    dev = x.device.index or 0
+    if stripes is None:
+        stripes = plan[0]
+        if cluster:
+            stripes = min(stripes, _clusters("ring_allreduce_chunked", n,
+                                              threads, seg_bytes, dev))
+    seg_v = seg_bytes // 16
+    sw = -(-(c_bytes // 16) // stripes)  # vectors per stripe
+    n_segs = -(-sw // seg_v)
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    buffer_bytes = n * stripes * RS_BUFS * (2 * n - 3) * seg_bytes
+    comm = _scratch(x, stream, "comm", 0 if cluster else buffer_bytes)
+    sems = _scratch(x, stream, "flags", n * stripes * 2 * RS_BUFS)
+    err = _entry("ring_allreduce_chunked", defines)(
+        x.data_ptr(), out.data_ptr(), comm.data_ptr(), sems.data_ptr(), n,
+        stripes, threads, c_bytes, seg_v, n_segs, int(cluster), *codes, dev,
+        stream)
+    if err:
+        raise KernelError(f"ring_allreduce_chunked launch failed: CUDA error "
+                          f"{err}")
+    CHUNKED.launched(sems, {
+        "stripes": stripes, "threads": threads, "segment_bytes": seg_bytes,
+        "segments": n_segs,
+        "buffers": "cluster shared memory" if cluster else "L2",
+        "buffer_bytes": buffer_bytes})
+    return out[..., :W].contiguous() if cols != W else out
 
 
 def selfdma_chunked_plain(x: torch.Tensor, seg_cols: int) -> torch.Tensor:
@@ -1382,18 +1643,20 @@ def ring_reduce_scatter(blocks: torch.Tensor, op) -> torch.Tensor:
 
 
 def _wave_plan(n: int, block_bytes: int, sm_count: int,
-               cluster: Optional[bool], forms: tuple
+               cluster: Optional[bool], forms: tuple,
+               bufs: Optional[int] = None, smem: int = RS_SMEM_BYTES
                ) -> tuple[int, int, int, bool]:
     """(stripes, threads per block, segment bytes, cluster) of a
-    wavefront kernel (``ring_reduce_scatter``, ``ring_allgather``) for n
-    ranks of ``block_bytes``-byte ring blocks: clusters up to
-    ``RS_CLUSTER_RANKS`` ranks (unless ``cluster`` says otherwise), each
-    form (``forms``: the cluster's, then the L2 one's) with its segment,
-    threads and blocks per SM; stripes of at least a segment, as many as
-    that many blocks per SM allow; segments no longer than a stripe, and
-    shortened until a block's (n-2) x RS_BUFS buffers take at most
-    ``RS_SMEM_BYTES`` of its shared memory (clusters) or all blocks' at
-    most ``RS_SLOT_BYTES`` (L2)."""
+    wavefront kernel (``ring_reduce_scatter``, ``ring_allgather``,
+    ``ring_allreduce_chunked``) for n ranks of ``block_bytes``-byte ring
+    blocks: clusters up to ``RS_CLUSTER_RANKS`` ranks (unless ``cluster``
+    says otherwise), each form (``forms``: the cluster's, then the L2
+    one's) with its segment, threads and blocks per SM; stripes of at
+    least a segment, as many as that many blocks per SM allow; segments
+    no longer than a stripe, and shortened until a block's ``bufs`` x
+    RS_BUFS buffers (``bufs`` forwarded steps; default n-2) take at most
+    ``smem`` bytes of its shared memory (clusters) or all blocks' at most
+    ``RS_SLOT_BYTES`` (L2)."""
     if cluster is None:
         cluster = n <= RS_CLUSTER_RANKS
     elif cluster and n > RS_CLUSTER_RANKS:
@@ -1402,8 +1665,8 @@ def _wave_plan(n: int, block_bytes: int, sm_count: int,
     seg, threads, per_sm = forms[0] if cluster else forms[1]
     stripes = _stripes(n, block_bytes, per_sm * sm_count, seg)
     seg = min(seg, -(-block_bytes // 16 // stripes) * 16)
-    per_block = RS_BUFS * max(n - 2, 0)
-    budget = RS_SMEM_BYTES if cluster else RS_SLOT_BYTES // (n * stripes)
+    per_block = RS_BUFS * (max(n - 2, 0) if bufs is None else bufs)
+    budget = smem if cluster else RS_SLOT_BYTES // (n * stripes)
     if per_block:
         seg = min(seg, max(16, budget // per_block // 16 * 16))
     return stripes, threads, seg, cluster
@@ -1754,8 +2017,55 @@ def linear_scatter(buf: torch.Tensor, root: int = 0) -> torch.Tensor:
     _check_root(root, n)
     if not buf.is_cuda:
         return linear_scatter_plain(buf, root)
-    return _launch("linear_scatter", SCATTER, buf, buf.shape, L, 0, 1,
-                   (L, root), (buf.element_size(),))
+    return _scatter_launch(buf, root)
+
+
+def _scatter_plan(n: int, row_bytes: int, sm_count: int,
+                  piece: int = SCATTER_PIECE_BYTES,
+                  per_sm: int = SCATTER_BLOCKS_PER_SM) -> tuple[int, int]:
+    """(senders, pieces per row) of ``linear_scatter``: rows of
+    ``row_bytes`` cut into ``piece``-byte pieces; root's blocks fill the
+    ``per_sm`` x SM resident slots the n - 1 receivers' blocks leave, no
+    more than there are pieces."""
+    slots = per_sm * sm_count
+    if n - 1 >= slots:
+        raise KernelError(f"{n} ranks need {n} resident blocks; the card "
+                          f"holds {slots}")
+    pieces = max(1, -(-row_bytes // piece))
+    return min(slots - (n - 1), n * pieces), pieces
+
+
+def _scatter_launch(buf: torch.Tensor, root: int,
+                    piece: Optional[int] = None, threads: Optional[int] = None,
+                    per_sm: Optional[int] = None,
+                    defines: tuple = ()) -> torch.Tensor:
+    """Launch csrc/linear_scatter.cu on root's (n, L) CUDA buffer with
+    ``SCATTER_*``'s pieces, threads and blocks per SM (or the ones given:
+    the measurement tools' sweep; ``defines`` names a probe build).
+    ``SCATTER.last_plan`` records what was launched."""
+    n, L = buf.shape
+    cap = require_kernel_device(buf)
+    piece = piece or SCATTER_PIECE_BYTES
+    threads = threads or SCATTER_THREADS
+    if piece % 16:
+        raise ArgumentError(f"scatter pieces must be 16-byte multiples, got "
+                            f"{piece}")
+    x = _aligned(buf, L)
+    row = L * buf.element_size()
+    senders, pieces = _scatter_plan(n, row, cap.sm_count, piece,
+                                    per_sm or SCATTER_BLOCKS_PER_SM)
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    sems = _scratch(x, stream, "flags", n + 2)  # and the two counters
+    err = _entry("linear_scatter", defines)(
+        x.data_ptr(), out.data_ptr(), sems.data_ptr(), n, row, root, piece,
+        pieces, senders, threads, x.device.index or 0, stream)
+    if err:
+        raise KernelError(f"linear_scatter launch failed: CUDA error {err}")
+    SCATTER.launched(sems, {"senders": senders, "receivers": n - 1,
+                            "threads": threads, "piece_bytes": piece,
+                            "pieces": n * pieces})
+    return out
 
 
 def ppermute_shift(x: torch.Tensor, shift: int = 1) -> torch.Tensor:

@@ -11,8 +11,8 @@
 //
 // Bound: bytes. Every rank's block is read once and written once per
 // rank, (n + 1) * B for B bytes received per rank: 2.885 ms at 1 GiB and
-// n = 8 on an H100 (3.35 TB/s). The first port (ring_common.cuh's two-pass
-// ring_schedule) copied a seed into a comm slot, then made two passes a
+// n = 8 on an H100 (3.35 TB/s). The first port (a two-pass ring schedule, since
+// removed) copied a seed into a comm slot, then made two passes a
 // step over whole 16 MiB stripes (slot -> the neighbour's slot, then the
 // arrival -> out) in scalar loads and stores, each with a fence on every
 // thread and a sleeping wait: each block crossed HBM about four times a

@@ -13,7 +13,7 @@
 // directions of each link; on one card both share one HBM, so at the
 // sizes it runs what sets the time is, as for ring_allreduce, the chain
 // of 2(n-1) dependent handovers and the host work around one launch. The
-// first port ran ring_common.cuh's two-pass ring_schedule in each
+// first port ran a two-pass ring schedule (since removed) in each
 // direction (a copy into the neighbour's slot, then the fold; a seed
 // copy; a fence on every thread; sleeping waits), and its wrapper
 // allocated and zeroed new flags and comm on every call.

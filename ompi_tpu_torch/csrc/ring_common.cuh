@@ -3,9 +3,11 @@
 // loads/stores for comm slots, a thread-block cluster's shared memory
 // (its addresses, stores, flags and launch), 16-byte vector combines, L2
 // cache policies for data another block reads after a flag, the
-// fold-then-forward ring (either ring direction), the two-pass ring
-// schedule (reduce-scatter then allgather, the chunked ring's), the byte
-// copies of the data-movement kernels and the cooperative launch.
+// fold-then-forward ring (either ring direction), the byte copies of the
+// data-movement kernels and the cooperative launch. Every ring of the
+// port makes one pass per step: the whole-payload rings here
+// (ring_fused), the reduce-scatter, the allgather, the chunked ring and
+// the table kernel in their own wavefronts.
 //
 // Ranks on one card. A rank-major buffer holds n virtual ranks in one
 // HBM; each rank is played by its own thread blocks (one per column
@@ -503,102 +505,6 @@ __device__ __forceinline__ void ring_fused(const uint4* __restrict__ x,
   }
 }
 
-// ---- the ring schedule (ring_allreduce_chunked) --------------------------
-
-// Flag slots per (rank, stripe).
-enum RingFlag { F_RECV = 0, F_CAP = 2, F_SEG = 4, RING_NSEM = 5 };
-
-// Block (r, s) of the grid plays rank r on column stripe s of every ring
-// block of W columns and sends to rank r+1: n-1 reduce-scatter steps, then
-// n-1 allgather steps. Rank-major layouts: x and out are (n ranks, n
-// blocks, W); comm is (n, stripes, 2, sw); sems is (n, stripes,
-// RING_NSEM). The ring runs segment by segment over `seg` columns; with
-// SEGMENTED a per-segment credit keeps a rank from starting segment i+1
-// into its right neighbour's slots before that neighbour has drained
-// segment i.
-//
-// Credits: a rank credits slot `slot` to its left neighbour right after
-// the send FROM that slot (every step but the last), not after filling
-// it as the reference does; the left neighbour spends the credit writing
-// that slot one step later. There is no post-seed credit.
-template <typename T, int OP, bool SEGMENTED>
-__device__ __forceinline__ void ring_schedule(const T* __restrict__ x,
-                                              T* __restrict__ out, T* comm,
-                                              int* sems, int n, int stripes,
-                                              long long W, long long seg,
-                                              int n_segs) {
-  const int r = blockIdx.x / stripes;
-  const int s = blockIdx.x % stripes;
-  const int left = (r - 1 + n) % n;
-  const int right = (r + 1) % n;
-  // Block index `r - k` modulo n, for k >= 0.
-  auto ring_blk = [&](int k) { return ((r - k) % n + n) % n; };
-  const long long sw = (seg + stripes - 1) / stripes;
-  const long long c0 = (long long)s * sw;
-  const long long cw = c0 < seg ? (seg - c0 < sw ? seg - c0 : sw) : 0;
-  const int rs_steps = n - 1;
-  const int nsteps = rs_steps + n - 1;
-
-  T* my_comm = comm + ((long long)r * stripes + s) * 2 * sw;
-  T* right_comm = comm + ((long long)right * stripes + s) * 2 * sw;
-  int* my_sem = sems + (r * stripes + s) * RING_NSEM;
-  int* left_sem = sems + (left * stripes + s) * RING_NSEM;
-  int* right_sem = sems + (right * stripes + s) * RING_NSEM;
-  const T* xr = x + (long long)r * n * W;
-  T* outr = out + (long long)r * n * W;
-  T* own = outr + (long long)r * W;  // this rank's own finished block
-
-  if (SEGMENTED && threadIdx.x == 0) signal(left_sem + F_SEG, 1);  // prime
-  for (int si = 0; si < n_segs; ++si) {
-    const long long off = (long long)si * seg + c0;
-    if (SEGMENTED) wait(my_sem + F_SEG, 1);
-    // Seed: slot 0 holds this rank's partial of block (r - 1).
-    const T* seed = xr + (long long)left * W + off;
-    for (long long j = threadIdx.x; j < cw; j += blockDim.x)
-      st_cg(my_comm + j, seed[j]);
-    for (int step = 0; step < nsteps; ++step) {
-      const int slot = step & 1, nslot = slot ^ 1;
-      if (step >= 1) wait(my_sem + F_CAP + nslot, 1);
-      // Send: my slot -> right neighbour's other slot.
-      const T* src = my_comm + slot * sw;
-      T* dst = right_comm + nslot * sw;
-      for (long long j = threadIdx.x; j < cw; j += blockDim.x)
-        st_cg(dst + j, ld_cg(src + j));
-      publish();
-      if (threadIdx.x == 0) {
-        signal(right_sem + F_RECV + nslot, 1);
-        if (step < nsteps - 1) signal(left_sem + F_CAP + slot, 1);
-      }
-      wait(my_sem + F_RECV + nslot, 1);
-      T* arrived = my_comm + nslot * sw;
-      if (step < rs_steps) {
-        // Reduce-scatter: fold this rank's block into the arrival.
-        const int blk = ring_blk(step + 2);
-        const T* xb = xr + (long long)blk * W + off;
-        T* ob = own + off;
-        const bool last = step == n - 2;  // blk == r: own block finished
-        for (long long j = threadIdx.x; j < cw; j += blockDim.x) {
-          const T v = Combine<T, OP>::apply(ld_cg(arrived + j), xb[j]);
-          st_cg(arrived + j, v);
-          if (last) ob[j] = v;
-        }
-      } else {
-        // Allgather: store the finished block that arrived.
-        const int blk = ring_blk(step - rs_steps + 1);
-        T* ob = outr + (long long)blk * W + off;
-        for (long long j = threadIdx.x; j < cw; j += blockDim.x)
-          ob[j] = ld_cg(arrived + j);
-      }
-    }
-    if (SEGMENTED) {
-      // Drained every send from the left: grant its next segment.
-      publish();
-      if (threadIdx.x == 0) signal(left_sem + F_SEG, 1);
-    }
-  }
-  if (SEGMENTED) wait(my_sem + F_SEG, 1);  // residual credit
-}
-
 // ---- data movement --------------------------------------------------------
 
 template <typename U>
@@ -610,32 +516,50 @@ __device__ __forceinline__ void copy_units(char* dst, const char* src,
   for (long long j = threadIdx.x; j < count; j += blockDim.x) d[j] = s[j];
 }
 
-// Whole block: copy `bytes` bytes from src to dst. In 16-byte vectors,
-// four loads in flight per thread before their stores, where both ends
-// and the length are 16-byte aligned; otherwise in units of the element
-// size `elem` (1, 2, 4 or 8 bytes; anything else byte by byte).
+// Whole block: copy `bytes` bytes from src to dst, any alignment. Where
+// dst and src sit at the same offset from a 16-byte boundary: the bytes
+// up to the first boundary one by one, then 16-byte vectors with four
+// loads in flight per thread, then the ragged tail one by one; otherwise
+// byte by byte throughout.
+__device__ __forceinline__ void copy_span(char* dst, const char* src,
+                                          long long bytes) {
+  const uintptr_t d = reinterpret_cast<uintptr_t>(dst);
+  long long head = (long long)((16 - (d & 15)) & 15);
+  if (((d ^ reinterpret_cast<uintptr_t>(src)) & 15) != 0) head = bytes;
+  if (head > bytes) head = bytes;
+  const long long nv = (bytes - head) >> 4;
+  const long long tail = head + nv * 16;
+  for (long long j = threadIdx.x; j < head; j += blockDim.x) dst[j] = src[j];
+  const uint4* s = reinterpret_cast<const uint4*>(src + head);
+  uint4* v_dst = reinterpret_cast<uint4*>(dst + head);
+  constexpr int kUnroll = 4;
+  for (long long j0 = threadIdx.x; j0 < nv;
+       j0 += (long long)kUnroll * blockDim.x) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = j0 + (long long)u * blockDim.x;
+      if (j < nv) v[u] = s[j];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = j0 + (long long)u * blockDim.x;
+      if (j < nv) v_dst[j] = v[u];
+    }
+  }
+  for (long long j = tail + threadIdx.x; j < bytes; j += blockDim.x)
+    dst[j] = src[j];
+}
+
+// Whole block: copy `bytes` bytes from src to dst: copy_span's 16-byte
+// vectors where both ends and the length are 16-byte aligned; otherwise
+// in units of the element size `elem` (1, 2, 4 or 8 bytes; anything else
+// byte by byte).
 __device__ __forceinline__ void copy_bytes(char* dst, const char* src,
                                            long long bytes, int elem) {
   if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) |
         (uintptr_t)bytes) & 15) == 0) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const long long nv = bytes >> 4;
-    constexpr int kUnroll = 4;
-    for (long long j0 = threadIdx.x; j0 < nv;
-         j0 += (long long)kUnroll * blockDim.x) {
-      uint4 v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const long long j = j0 + (long long)u * blockDim.x;
-        if (j < nv) v[u] = s[j];
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const long long j = j0 + (long long)u * blockDim.x;
-        if (j < nv) d[j] = v[u];
-      }
-    }
+    copy_span(dst, src, bytes);
     return;
   }
   switch (elem) {

@@ -13,8 +13,8 @@
 // Bound: bytes. Every rank's n blocks are read once and one block per
 // rank is written, (n + 1) * B for B bytes sent per rank: 2.885 ms at
 // 1 GiB and n = 8 on an H100 (3.35 TB/s); one combine per element is far
-// below the operation rate. The first port (ring_common.cuh's
-// ring_schedule) made two passes a step over whole 128 MiB stripes (a
+// below the operation rate. The first port (a two-pass ring
+// schedule, since removed) made two passes a step over whole 128 MiB stripes (a
 // copy into the neighbour's slot, then the fold), after a seed copy: 37
 // units of 128 MiB per rank, all through HBM, with a fence on every
 // thread and sleeping waits.

@@ -13,8 +13,9 @@ parent) in one machine to compare them. Prints one JSON line: the
 card's name, its power limit and the p50 (ms, 20 launches between CUDA
 events, after two warm-ups) of, at n = 8:
 
-- ``linear_scatter`` at 1 GiB per rank (root 5; timed first, and again
-  last) and ``ring_allreduce_rd`` at 4 KiB per rank (float32 SUM; timed
+- ``linear_scatter`` at 1 GiB per rank (root 5) and ``x.clone()`` of
+  root's buffer beside it, its library call (each timed first, and again
+  last), and ``ring_allreduce_rd`` at 4 KiB per rank (float32 SUM; timed
   first, and again after the 1 GiB trees);
 - ``ring_allreduce`` and ``ring_allreduce_bidir`` at 1 MiB per rank
   (float32 SUM, ``_split_ring``'s blocks);
@@ -93,6 +94,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = torch.randn((N, GIB // 4), generator=gen, device="cuda")
     scatter_first = p50(lambda: pr.linear_scatter(rows, 5))
+    clone_first = p50(lambda: rows.clone())
     del rows
     torch.cuda.empty_cache()
     small = torch.randn((N, KIB), generator=gen, device="cuda")
@@ -178,6 +180,8 @@ def main() -> int:
     rows = torch.randn((N, GIB // 4), generator=gen, device="cuda")
     out["linear_scatter_1GiB_first_ms"] = scatter_first
     out["linear_scatter_1GiB_ms"] = p50(lambda: pr.linear_scatter(rows, 5))
+    out["scatter_clone_1GiB_first_ms"] = clone_first
+    out["scatter_clone_1GiB_ms"] = p50(lambda: rows.clone())
     print(json.dumps(out), flush=True)
     return 0
 

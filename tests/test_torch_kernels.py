@@ -213,8 +213,56 @@ def test_allgather_matches_plain_at_several_segments(cuda, n, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("n", [2, 3, 8, 12])
+def test_chunked_matches_plain_at_several_plans(cuda, n, dtype):
+    """The chunked ring's wavefront at ragged blocks of fewer segments
+    than its 2(n-1) steps and of many, with the plan's stripes and with
+    one, its buffers where the plan puts them (a cluster's shared memory
+    up to n = 8, L2 at n = 12) and in L2: bitwise its plain version,
+    every flag at 0."""
+    seg = pr.CHUNKED_CLUSTER_SEG_BYTES // 4
+    for W in (3 * seg - 40, 40 * seg + 77):
+        x = _input(n, n * W, dtype, cuda).reshape(n, n, W)
+        for op in OPS:
+            want = pr.ring_allreduce_chunked_plain(x, op, W)
+            for stripes in (None, 1):
+                for cluster in (None, False):
+                    got = _launched_once(pr.CHUNKED, lambda: pr._chunked_launch(
+                        x, op, stripes=stripes, cluster=cluster))
+                    assert pr.CHUNKED.last_plan["buffers"] == (
+                        "cluster shared memory" if n <= 8 and cluster is None
+                        else "L2")
+                    assert torch.equal(_bits(got), _bits(want)), \
+                        (n, W, op, stripes, cluster)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT) + ["float16", "float64", "int8"])
+@pytest.mark.parametrize("n", [2, 3, 8, 12])
+def test_scatter_matches_plain_at_several_plans(cuda, n, dtype):
+    """The scatter's pieces at rows that are not whole 16-byte vectors
+    (the ragged head and tail copied byte by byte inside the kernel), at
+    the plan's pieces and at 16 and 48 bytes, on a view that does not
+    start at a row: bitwise its plain version and root's buffer, every
+    flag at 0. It copies bytes: any dtype."""
+    for cols in (333, 70001):
+        x = _input(n, cols + 1, "int32", cuda).to(getattr(torch, dtype))
+        for buf in (x[:, :cols], x[:, 1:]):
+            want = pr.linear_scatter_plain(buf, 0)
+            assert torch.equal(want, buf)
+            for root in (0, n - 1):
+                for piece in (None, 16, 48):
+                    got = _launched_once(pr.SCATTER, lambda: pr._scatter_launch(
+                        buf, root, piece))
+                    assert pr.SCATTER.last_plan["receivers"] == n - 1
+                    assert torch.equal(got, want), (cols, root, piece)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["ring", "tree", "bcast", "rs", "rs-l2",
-                                    "ag", "ag-l2"])
+                                    "ag", "ag-l2", "chunked", "chunked-l2",
+                                    "scatter"])
 def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
                                                                 kernel):
     """50 back-to-back launches at n = 8 give the same bits, every flag
@@ -230,6 +278,16 @@ def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
     elif kernel == "bcast":
         x = _input(8, 3 * pr.BCAST_SEG_BYTES // 4 + 5000, "float32", cuda)
         run, counter = (lambda: pr.tree_bcast(x, 3)), pr.TREE_BCAST
+    elif kernel.startswith("chunked"):  # in shared memory, or in L2
+        W = 40 * pr.CHUNKED_CLUSTER_SEG_BYTES // 4 + 77
+        x = _input(8, 8 * W, "float32", cuda).reshape(8, 8, W)
+        cluster = kernel == "chunked"
+        run, counter = (lambda: pr._chunked_launch(x, "sum",
+                                                   cluster=cluster)), \
+            pr.CHUNKED
+    elif kernel == "scatter":  # several pieces a row, a ragged tail
+        x = _input(8, 3 * pr.SCATTER_PIECE_BYTES // 4 + 77, "float32", cuda)
+        run, counter = (lambda: pr.linear_scatter(x, 5)), pr.SCATTER
     elif kernel.startswith("ag"):  # its buffers in shared memory, or L2
         x = _input(8, 40 * pr.AG_SEG_BYTES // 4 + 77, "float32", cuda)
         cluster = kernel == "ag"

@@ -12,17 +12,20 @@ against the JAX package's Pallas kernels and a numpy ring-order oracle.
   float32/bfloat16/int32 on the port's simulators against a numpy
   oracle that folds each block in ring order (bfloat16 through
   ml_dtypes, which also computes in float32 and rounds once). Exact.
-- Interleavings: the ring and chunked simulators, the ring's two
-  halves (the reduce-scatter's two-pass schedule and the allgather
-  kernel's wavefront, ``simulate_ring_ag_fused``) and the bidirectional
-  ring, under 200 seeded random schedules at n in {3, 4, 8} must give
-  the lock-step result exactly with every flag back at 0; the
-  reference's credit placement in the same simulator must fail (the
-  negative control), as must the bidirectional ring at n = 2 with one
-  set of flags for both directions. The alltoall, gather and scatter
-  simulators likewise, with one flag per step, sender or receiver;
-  with a shared flag (the JAX package's docstrings say why) some wait
-  returns before the row it certifies has landed.
+- Interleavings: the ring simulator, the chunked kernel's wavefront
+  (``simulate_ring_chunked``), the ring's two halves (the
+  reduce-scatter's two-pass schedule and the allgather kernel's
+  wavefront, ``simulate_ring_ag_fused``) and the bidirectional ring,
+  under 200 seeded random schedules at n in {3, 4, 8} must give the
+  lock-step result exactly with every flag back at 0; the reference's
+  credit placement (for the chunked and allgather kernels, the JAX
+  package's own schedule) must fail (the negative control), as must the
+  bidirectional ring at n = 2 with one set of flags for both
+  directions. The alltoall, gather and scatter simulators likewise (the
+  scatter's rows in pieces streamed by two of root's blocks), with one
+  flag per step, sender or receiver; with a shared flag (the JAX
+  package's docstrings say why) some wait returns before the row it
+  certifies has landed.
 
 The kernels themselves, on a card, are tested in test_torch_kernels.py.
 """
@@ -241,17 +244,18 @@ def _ring_case(kernel, n):
     op = lookup("sum")
     if kernel == "bidir":
         return lambda **kw: pr.simulate_ring_bidir(blocks, op, **kw)
-    x, kw0 = blocks, dict(seg_cols=128, segmented=True)  # two segments
-    if kernel == "ring":
-        kw0 = dict(seg_cols=None, segmented=False)
-    elif kernel == "rs":
-        kw0 = dict(phase="rs")
-    elif kernel == "ag":
+    if kernel == "chunked":
+        # the chunked kernel's wavefront over four segments; its credit
+        # "reference" runs the JAX package's segmented two-pass schedule
+        return lambda **kw: pr.simulate_ring_chunked(blocks, op, seg_cols=64,
+                                                     **kw)
+    if kernel == "ag":
         # the allgather kernel's wavefront over four segments; its credit
         # "reference" runs the JAX package's two-pass schedule
         own = blocks[:, 0].contiguous()
         return lambda **kw: pr.simulate_ring_ag_fused(own, seg_cols=64, **kw)
-    return lambda **kw: pr.simulate_ring(x, op, **kw0, **kw)
+    kw0 = dict(phase="rs") if kernel == "rs" else {}
+    return lambda **kw: pr.simulate_ring(blocks, op, **kw0, **kw)
 
 
 RING_KERNELS = ["ring", "chunked", "rs", "ag", "bidir"]
@@ -319,8 +323,10 @@ def _mover_case(kind, n):
     if kind == "alltoall":
         return (lambda **kw: pr.simulate_alltoall(x, **kw)), x.transpose(0, 1)
     flat = x[:, 0].contiguous()
-    sim = pr.simulate_gather if kind == "gather" else pr.simulate_scatter
-    return (lambda **kw: sim(flat, n - 1, **kw)), flat
+    if kind == "scatter":  # four pieces a row, two of root's blocks
+        return (lambda **kw: pr.simulate_scatter(
+            flat, n - 1, piece_cols=16, senders=2, **kw)), flat
+    return (lambda **kw: pr.simulate_gather(flat, n - 1, **kw)), flat
 
 
 @pytest.mark.parametrize("n", [3, 4, 8])
