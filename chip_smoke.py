@@ -26,7 +26,10 @@ step, the chunked ring, the reduce-scatter, the allgather and the table
 kernel in a wavefront over segments, one thread-block cluster per stripe
 up to 8 ranks with their buffers in the reading rank's shared memory (in
 L2 beyond); the scatter streams root's rows in pieces over nearly the
-whole card, each piece counted on its receiver's flag.
+whole card, each piece counted on its receiver's flag; the gather
+streams each rank's row in pieces by a pool of blocks of its own, onto
+root's counted flags; recursive doubling exchanges its rounds through a
+cluster's shared memory up to 8 ranks (global memory beyond).
 
 Phases (any failure raises and exits non-zero):
 
@@ -56,7 +59,12 @@ Phases (any failure raises and exits non-zero):
    movers and the allgather for float64, float16 and int8 at odd row
    widths (their element-sized copies), the scatter also with pieces of
    16 and 48 bytes on unaligned rows at n in {3, 8, 12} (the ragged head
-   and tail copied byte by byte inside the kernel); ``sched_table`` on
+   and tail copied byte by byte inside the kernel), the gather likewise,
+   published one and three pieces at a time, at the plan's pools and at
+   four blocks a SM; recursive doubling in both forms at n in {2, 4, 8,
+   16} (the plan's, the L2 form forced, and the cluster form over
+   stripes of four vectors), every op and dtype at 33 and 2500 elements
+   per rank; ``sched_table`` on
    eight programs (ring, ring with a non-identity order, segmented
    ring at 2 and 4 segments, reduce-scatter, allgather, a 3-member
    ``fuse_schedules``, a ``fuse_window``) at n in {2, 3, 4, 8, 12},
@@ -183,11 +191,14 @@ Phases (any failure raises and exits non-zero):
    it as ``exact_sum_ms``, for context, with the two TunedColl route
    p50s of the quant path (``quant_ring_ms``, ``exact_route_ms``).
    ``ring_allreduce_bidir``'s, ``ring_allreduce_chunked``'s,
-   ``linear_scatter``'s, ``sched_table``'s and ``selfdma_chunked``'s rows
-   carry the plan their timed launches ran (``plan``: stripes, threads,
-   and for the chunked ring and the table its segments and the buffers'
-   memory; for the scatter its senders, receivers, threads and pieces;
-   blocks and piece bytes), the reduce-scatter's and the allgather's its
+   ``linear_scatter``'s, ``linear_gather``'s, ``ring_allreduce_rd``'s,
+   ``sched_table``'s and ``selfdma_chunked``'s rows carry the plan their
+   timed launches ran (``plan``: stripes, threads, and for the chunked
+   ring and the table its segments and the buffers' memory; for the
+   scatter its senders, receivers, threads and pieces; for the gather its
+   blocks, pools, threads, pieces and pieces per publication; for
+   recursive doubling its form; blocks and piece bytes), the
+   reduce-scatter's and the allgather's its
    fields (stripes, threads, segment bytes, the buffers' memory and
    bytes). ``ring_allgather``'s ``also`` list holds its L2 form at n = 12
    (about 1 GiB received per rank) and ``allreduce_block_rsag`` at 1 GiB
@@ -202,7 +213,10 @@ Phases (any failure raises and exits non-zero):
    ``ring_allreduce``'s row also holds its host/device split from
    ``torch.profiler`` (``device_ms``, ``call_host_ms``,
    ``call_to_kernel_ms``, as ``ompi_tpu_torch/tools/ring_probe.py``
-   reads them), and ``tree_reduce``'s its block split
+   reads them), ``ring_allreduce_rd``'s the same split, the form it ran
+   (``form``) and the time of an empty kernel launched as that form is
+   (``empty_launch_ms``, the floor the host sets), and ``tree_reduce``'s
+   its block split
    (``blocks_per_relative_rank``, ``segment_cols``), each also printed
    on a line of its own.
    ``ppermute_shift``'s row is 8 MiB per rank (4 KiB in ``small_ms``),
@@ -627,6 +641,58 @@ def kernel_vs_plain(pr, gen) -> None:
     log(f"[kernel-vs-plain] linear_scatter with pieces of 16 and 48 bytes "
         f"on unaligned rows: {checked} cases bitwise equal, all semaphores "
         f"0 ({time.time() - t0:.1f} s)")
+
+    # The gather's pools likewise: pieces of 16 and 48 bytes (published
+    # one and three at a time) on rows that are not whole vectors and start
+    # off a row, at the plan's pools and at four blocks a SM (other pool
+    # sizes, unequal at n = 3, 8 and 12).
+    t0 = time.time()
+    checked = 0
+    for n in (3, 8, 12):
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            x = random_rank_major((n, 1002), dtype, gen)
+            flat = x[:, 1:]
+            for root in (0, n - 1):
+                want = pr.linear_gather_plain(flat, root)
+                for piece, publish in ((16, 1), (48, 3)):
+                    for per_sm in (None, 4):
+                        got = pr._gather_launch(flat, root, piece,
+                                                per_sm=per_sm,
+                                                publish=publish)
+                        torch.cuda.synchronize()
+                        check_sems(KERNELS["linear_gather"])
+                        equal_or_raise(got, want, f"linear_gather n={n} "
+                                       f"{dtype} root={root} pieces of "
+                                       f"{piece} B, {per_sm} blocks a SM")
+                        checked += 1
+    log(f"[kernel-vs-plain] linear_gather with pieces of 16 and 48 bytes "
+        f"on unaligned rows, two pool sizes: {checked} cases bitwise equal, "
+        f"all semaphores 0 ({time.time() - t0:.1f} s)")
+
+    # Recursive doubling in every form: the plan's (a cluster's shared
+    # memory up to 8 ranks, global memory at 16), the L2 form forced, and
+    # the cluster form over stripes of four vectors.
+    t0 = time.time()
+    checked = 0
+    for n in (2, 4, 8, 16):
+        forms = ((None, None), (False, None)) + (
+            ((True, 64),) if n <= pr.RS_CLUSTER_RANKS else ())
+        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+            for elems in (33, 2500):
+                x = random_rank_major((n, elems), dtype, gen)
+                for op in ("sum", "max", "min", "prod"):
+                    want = pr.ring_allreduce_rd_plain(x, op)
+                    for cluster, stripe in forms:
+                        got = pr._rd_launch(x, op, cluster=cluster,
+                                            stripe_bytes=stripe)
+                        torch.cuda.synchronize()
+                        check_sems(KERNELS["ring_allreduce_rd"])
+                        equal_or_raise(got, want, f"ring_allreduce_rd n={n} "
+                                       f"{dtype} {op} elems={elems} "
+                                       f"{pr.RD.last_plan}")
+                        checked += 1
+    log(f"[kernel-vs-plain] ring_allreduce_rd in both forms: {checked} cases "
+        f"bitwise equal, all semaphores 0 ({time.time() - t0:.1f} s)")
 
 
 def table_programs(ir, pl, n):
@@ -2061,9 +2127,12 @@ def measure(pr, gen, errs, launches) -> list:
         if kernel == "selfdma_chunked":
             extra += selfdma_split(pr, gen, row)
         if kernel in ("ring_allreduce_bidir", "ring_allreduce_chunked",
-                      "linear_scatter", "sched_table", "selfdma_chunked"):
+                      "linear_scatter", "sched_table", "selfdma_chunked",
+                      "ring_allreduce_rd", "linear_gather"):
             row["plan"] = plan
             log(f"[plan] {kernel} at {nbytes} B/rank: {plan}")
+        if kernel == "ring_allreduce_rd":
+            extra += rd_split(pr, gen, row)
         if kernel == "sched_table":
             row["program"] = "segmented_ring(8, 2)"
             row["also"] = []
@@ -2225,6 +2294,43 @@ def ring_split(pr, gen, row) -> str:
         f"start {row['call_to_kernel_ms']:.5f} ms")
     return (f"; kernel {row['device_ms']:.5f} ms on the card, call start to "
             f"kernel start {row['call_to_kernel_ms']:.5f} ms")
+
+
+def rd_split(pr, gen, row) -> str:
+    """Recursive doubling at its main-path size: the form its timed
+    launches ran (``row["plan"]``), its host/device split from
+    ``torch.profiler`` as ``ring_split`` reads it, and the floor that the
+    host sets, an empty kernel launched as that form is
+    (``tools/gather_rd_check.py``), timed as the row is. Adds them to
+    ``row``; returns the log text."""
+    import torch
+    from ompi_tpu_torch.tools.gather_rd_check import empty_launch
+    from ompi_tpu_torch.tools.ring_probe import profile
+
+    x = random_rank_major((N, MAIN_SIZES["ring_allreduce_rd"] // 4),
+                          torch.float32, gen)
+    split = profile(lambda: pr.ring_allreduce_rd(x, "sum"),
+                    kernel="ring_allreduce_rd")
+    if "kernel device" not in split:
+        raise AssertionError(f"ring_allreduce_rd: the profiler saw no device "
+                             f"time ({split})")
+    plan = row["plan"]
+    row["form"] = plan["form"]
+    row["device_ms"] = split["kernel device"]
+    row["call_host_ms"] = split["call host"]
+    row["call_to_kernel_ms"] = split["call start to kernel start"]
+    cluster = plan["form"] == "cluster"
+    sv = x.shape[1] * 4 // 16 // plan["stripes"]
+    row["empty_launch_ms"] = p50_ms(empty_launch(
+        x, cluster, plan["stripes"], plan["threads"],
+        16 * (1 + 3 * sv) if cluster else 0), KERNEL_REPS)
+    log(f"[time] ring_allreduce_rd in its {plan['form']} form "
+        f"(torch.profiler, p50 of 20 calls): kernel {row['device_ms']:.5f} "
+        f"ms on the card, call {row['call_host_ms']:.5f} ms on the host, "
+        f"call start to kernel start {row['call_to_kernel_ms']:.5f} ms; an "
+        f"empty launch of that form {row['empty_launch_ms']:.5f} ms")
+    return (f"; {plan['form']} form, kernel {row['device_ms']:.5f} ms on the "
+            f"card, empty launch {row['empty_launch_ms']:.5f} ms")
 
 
 def attn_flops(causal: bool) -> float:

@@ -12,7 +12,10 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
   (``simulate_ring_fused``).
 - ``ring_allreduce_rd`` (``_allreduce_rd_kernel``): recursive doubling,
   log2 n rounds with one slot and one flag per round, rank-ordered
-  combine.
+  combine; up to 8 ranks the ranks' blocks of a stripe form a
+  thread-block cluster, each rank's value in registers, the slots and
+  flags in the receiving rank's shared memory (``simulate_rd``'s
+  "cluster" form), beyond in global memory ("l2").
 - ``ring_allreduce_chunked`` (``_allreduce_chunked_kernel``): the ring
   streamed in segments, so comm scratch stays bounded however large the
   message: the 2(n-1) steps of ``ring_allreduce``'s one-pass body in a
@@ -47,9 +50,11 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
   (``simulate_ring_bidir``).
 - ``ring_alltoall`` (``_alltoall_kernel``): pairwise exchange, one flag
   per step per receiver; it moves bytes, so it takes any dtype.
-- ``linear_gather`` (``_gather_kernel``): every sender stores into
-  root's rows after root's ready credit, one flag per sender. It moves
-  bytes, any dtype.
+- ``linear_gather`` (``_gather_kernel``): a pool of blocks per rank
+  streams that rank's row into root's rows in pieces drawn from the
+  rank's ticket counter, after root's ready credit, each piece counted
+  on root's flag for that sender (``simulate_gather``). It moves bytes,
+  any dtype.
 - ``linear_scatter`` (``_scatter_kernel``): root's blocks, nearly the
   whole card, stream every row in pieces, all rows at once, drawn from
   a ticket counter, each piece counted on its receiver's flag; a
@@ -222,6 +227,33 @@ CHUNKED_SMEM_BYTES = 216 << 10
 #: same runs. A fixed share of pieces per block took 5.94-6.12.
 SCATTER_PIECE_BYTES, SCATTER_THREADS, SCATTER_BLOCKS_PER_SM = \
     64 << 10, 256, 2
+#: The linear gather's plan (csrc/linear_gather.cu, ``_gather_plan``):
+#: bytes of a piece of a row, threads per block and blocks per SM; the
+#: resident slots are split into n pools, one per rank, and a rank's
+#: group of flags takes ``GATHER_WORDS`` int32 (a 32-byte sector). A
+#: sender's block publishes every ``GATHER_PUBLISH_PIECES`` pieces.
+#: Sweeps at 1 GiB per rank, n = 8, on an NVIDIA H100 (PERF.md,
+#: tools/gather_rd_check.py): 64 KiB x 256 threads x 2 per SM 5.765 ms,
+#: 512 x 1 5.770, 16 KiB x 256 x 4 5.786, 1024 x 1 5.868, 256 KiB pieces
+#: 5.85-5.92, 16 KiB pieces with 1024 or 512 threads a SM 7.35-7.39;
+#: ``x.clone()`` 5.680 in the same run. Publishing every 1, 2, 4, 8, 16 or
+#: 64 pieces: 5.946-5.998 against ``x.clone()`` 5.801 in one slower run,
+#: every 8 or 16 the best; a fence a piece left every sender pool 0.44 ms
+#: behind root's (a probe build), 8 pieces a fence 0.14.
+GATHER_PIECE_BYTES, GATHER_THREADS, GATHER_BLOCKS_PER_SM = \
+    64 << 10, 256, 2
+GATHER_PUBLISH_PIECES = 8
+GATHER_WORDS = 8
+#: Recursive doubling's plans (csrc/ring_allreduce_rd.cu, ``_rd_plan``):
+#: up to ``RS_CLUSTER_RANKS`` ranks one cluster of the n ranks' blocks per
+#: column stripe of at most ``RD_STRIPE_BYTES``, a thread per 16-byte
+#: vector, its rounds' slots (at most ``RD_MAX_ROUNDS``) in the receiving
+#: rank's shared memory; beyond, the L2 form's stripes of at least
+#: ``STRIPE_COLS`` columns, 1024 threads. At 4 KiB per rank, n = 8, on an
+#: NVIDIA H100 (PERF.md, tools/gather_rd_check.py) the cluster form takes
+#: 4.3 µs on the card against the L2 form's 8.3; by events stripes of
+#: 256 B to 4 KiB gave 0.0249-0.0252 ms, the L2 form 0.0276, in turns.
+RD_STRIPE_BYTES, RD_MAX_ROUNDS = 16 << 10, 3
 #: Bytes of a piece of ``selfdma_chunked``'s bulk-copy pipeline (its
 #: shared memory holds four) and its blocks per SM. Sweeps at 1 GiB on an
 #: NVIDIA H100 (PERF.md, tools/ag_selfdma_check.py): 8 KiB x 4 0.753-0.786
@@ -860,39 +892,79 @@ def simulate_alltoall(x: torch.Tensor, *, flags: str = "port",
 
 
 def simulate_gather(flat: torch.Tensor, root: int = 0, *,
-                    flags: str = "port",
+                    flags: str = "port", piece_cols: Optional[int] = None,
+                    blocks=1, publish: int = 1,
                     rng: Optional[random.Random] = None):
-    """Run the linear gather on (n, L): root copies its own row, grants
-    every sender a ready credit and waits on one flag per sender; a
-    sender waits for its credit, stores its row into root's row ``me``
-    and signals its flag. ``flags`` "shared" gives root one flag for all
-    senders (the hazard the JAX package's docstring names). Returns
-    (root's (n, L) rows, residue) as ``simulate_alltoall`` does."""
+    """Run the linear gather on (n, L) as its kernel does: every row is
+    cut into pieces of ``piece_cols`` columns (the last ragged; default
+    the whole row), and rank q's pool of programs (its thread blocks;
+    ``blocks`` per pool, or a list of n pool sizes) draws row q's pieces
+    from q's ticket counter, as the interleaving lets them run. Root's
+    first program grants every sender its ready credit as it starts;
+    each of a sender's programs reads the credit (without taking it)
+    before its first store. A program stores its piece into root's row q
+    and draws its next ticket; a sender's program publishes every
+    ``publish`` pieces and after its last one, raising root's flag for q
+    by the pieces it published. A program that draws past the last piece
+    counts itself done; the last one done in a pool takes the pool's
+    ticket, count and credit back to 0. Root's program j then waits for
+    senders j + 1, j + 1 + pool, ... until each one's flag counts all of
+    its row's pieces, and takes them off.
+    ``flags`` "shared" gives root one flag for all senders (the hazard
+    the JAX package's docstring names). Returns (root's (n, L) rows,
+    residue) as ``simulate_alltoall`` does: residue also holds every wait
+    that returned before its row had wholly landed."""
     _check_flags(flags)
-    n = flat.shape[0]
+    n, L = flat.shape
+    piece = max(L, 1) if piece_cols is None else piece_cols
+    sizes = [blocks] * n if isinstance(blocks, int) else list(blocks)
+    if piece <= 0 or len(sizes) != n or min(sizes) < 1 or publish < 1:
+        raise ArgumentError(f"bad gather plan: pieces of {piece} columns, "
+                            f"pools {blocks}, {publish} a publication")
+    pieces = max(1, -(-L // piece))
     out = torch.empty_like(flat)
     sems: dict = collections.defaultdict(int)
     landed: set = set()
+    stored = collections.Counter()
 
     def flag(sender):
         return (root, "recv", sender if flags == "port" else None)
 
-    def rank(me):
-        if me == root:
-            out[me] = flat[me]
-            for q in range(1, n):
-                sems[(root + q) % n, "ready"] += 1
-            for q in range(1, n):
-                sender = (root + q) % n
-                yield flag(sender), 1
+    def block(q, j):
+        if q != root:
+            yield (q, "ready"), 1
+            sems[q, "ready"] += 1  # read, not taken
+        elif j == 0:
+            for d in range(1, n):
+                sems[(root + d) % n, "ready"] += 1
+        p = sems[q, "ticket"]
+        sems[q, "ticket"] += 1
+        held = 0
+        while p < pieces:
+            cols = slice(p * piece, min(L, (p + 1) * piece))
+            out[q, cols] = flat[q, cols]
+            p = sems[q, "ticket"]
+            sems[q, "ticket"] += 1
+            if q != root:
+                stored[q] += 1
+                if stored[q] == pieces:
+                    landed.add((root, q))
+                held += 1
+                if held == publish or p >= pieces:
+                    sems[flag(q)] += held
+                    held = 0
+            yield _PAUSE
+        sems[q, "done"] += 1
+        if sems[q, "done"] == sizes[q]:
+            sems[q, "ticket"] = sems[q, "done"] = sems[q, "ready"] = 0
+        if q == root:
+            for d in range(j + 1, n, sizes[q]):
+                sender = (root + d) % n
+                yield flag(sender), pieces
                 _early(sems, landed, root, sender)
-        else:
-            yield (me, "ready"), 1
-            out[me] = flat[me]
-            landed.add((root, me))
-            sems[flag(me)] += 1
 
-    _drive([rank(r) for r in range(n)], sems, rng)
+    _drive([block(q, j) for q in range(n) for j in range(sizes[q])], sems,
+           rng)
     return out, _residue(sems)
 
 
@@ -982,28 +1054,67 @@ def simulate_ppermute(x: torch.Tensor, shift: int = 1, *,
     return out, _residue(sems)
 
 
-def simulate_rd(flat: torch.Tensor, op: Op, *,
-                rng: Optional[random.Random] = None):
+def simulate_rd(flat: torch.Tensor, op: Op, *, form: str = "l2",
+                slots: str = "round", rng: Optional[random.Random] = None):
     """Run the recursive-doubling schedule on ``flat`` (n, L), n a power
-    of two: round k exchanges the whole buffer with rank me ^ 2^k into
-    that round's own slot and flag, and combines in rank order.
-    Returns (out, residue) as ``simulate_ring`` does."""
+    of two, as its kernel does in either form: round k stores the whole
+    running value into rank me ^ 2^k's slot for round k, raises that
+    rank's flag for round k, waits for its own and combines in rank order
+    (the lower rank's value on the left). ``form`` "l2": the slots and
+    flags in global memory, each flag taken back to 0 by its waiter.
+    "cluster": the slots and flags per receiver and per round in the
+    receiving rank's shared memory, whose words are stale when a launch
+    starts (1 here): each rank zeroes its flags, then a cluster barrier
+    precedes every peer store, and a second barrier every rank's exit.
+    ``slots`` "shared" gives every round one slot and one flag (the
+    hazard the JAX package's docstring names). Returns (out, residue) as
+    ``simulate_ring`` does: residue also holds every combine whose slot
+    did not hold its own round's arrival from its own partner."""
     n, L = flat.shape
+    if n & (n - 1) or form not in ("l2", "cluster") \
+            or slots not in ("round", "shared"):
+        raise ArgumentError(f"bad recursive doubling: n={n}, form {form!r}, "
+                            f"slots {slots!r}")
     rounds = (n - 1).bit_length()
     out = flat.clone()
     comm = flat.new_empty((n, max(rounds, 1), L))
     sems: dict = collections.defaultdict(int)
+    writer: dict = {}  # (rank, slot) -> (sender, round) of its last store
+    where = "smem" if form == "cluster" else "recv"
+
+    def slot(k):
+        return k if slots == "round" else 0
+
+    if form == "cluster":
+        for r in range(n):
+            for k in range(rounds):
+                sems[r, where, slot(k)] = 1
+
+    def barrier(me, phase):
+        for r in range(n):
+            if r != me:
+                sems[r, "barrier", phase] += 1
+        yield (me, "barrier", phase), n - 1
 
     def rank(me):
+        if form == "cluster":
+            for k in range(rounds):
+                sems[me, where, slot(k)] = 0
+            yield from barrier(me, 0)
         for k in range(rounds):
             partner = me ^ (1 << k)
-            comm[partner, k] = out[me]
-            sems[partner, "recv", k] += 1
-            yield (me, "recv", k), 1
+            comm[partner, slot(k)] = out[me]
+            writer[partner, slot(k)] = (me, k)
+            sems[partner, where, slot(k)] += 1
+            yield (me, where, slot(k)), 1
+            if writer[me, slot(k)] != (partner, k):
+                sems["early", me, k] += 1
             if partner < me:
-                out[me] = op.combine(comm[me, k], out[me])
+                out[me] = op.combine(comm[me, slot(k)], out[me])
             else:
-                out[me] = op.combine(out[me], comm[me, k])
+                out[me] = op.combine(out[me], comm[me, slot(k)])
+        if form == "cluster":
+            yield from barrier(me, 1)
 
     _drive([rank(r) for r in range(n)], sems, rng)
     return out, _residue(sems)
@@ -1205,7 +1316,9 @@ def ring_allreduce_chunked_plain(blocks: torch.Tensor, op,
 
 
 def ring_allreduce_rd_plain(flat: torch.Tensor, op) -> torch.Tensor:
-    return _checked(simulate_rd(flat, op_lookup(op)))
+    """The kernel's rounds in the form its plan takes at n ranks."""
+    form = "cluster" if flat.shape[0] <= RS_CLUSTER_RANKS else "l2"
+    return _checked(simulate_rd(flat, op_lookup(op), form=form))
 
 
 def _plain_seg(cols: int, seg: int) -> int:
@@ -1245,7 +1358,14 @@ def ring_alltoall_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def linear_gather_plain(flat: torch.Tensor, root: int) -> torch.Tensor:
-    return _checked(simulate_gather(flat, root))
+    """The kernel's pieces and publications, two programs a pool (one
+    for a row of one piece); no bit depends on any of them."""
+    L = flat.shape[1]
+    piece = _plain_seg(L, max(1, GATHER_PIECE_BYTES // flat.element_size()))
+    blocks = min(2, max(1, -(-L // piece)))
+    return _checked(simulate_gather(flat, root, piece_cols=piece,
+                                    blocks=blocks,
+                                    publish=GATHER_PUBLISH_PIECES))
 
 
 def linear_scatter_plain(buf: torch.Tensor, root: int) -> torch.Tensor:
@@ -1278,8 +1398,10 @@ _ARGTYPES = {
     # n_segs, cluster, op, dtype, dev, stream
     "ring_allreduce_chunked": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I,
                                _I, _I, _I, _P],
-    # x, out, comm, sems, n, stripes, L, rounds, op, dtype, dev, stream
-    "ring_allreduce_rd": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, threads, L, rounds, cluster, op,
+    # dtype, dev, stream
+    "ring_allreduce_rd": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I,
+                          _I, _P],
     # x, out, comm, sems, n, stripes, threads, block bytes, seg vectors,
     # n_segs, cluster, op, dtype, dev, stream
     "ring_reduce_scatter": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I,
@@ -1300,8 +1422,11 @@ _ARGTYPES = {
                              _I, _P],
     # x, out, comm, sems, n, stripes, W, elem size, dev, stream
     "ring_alltoall": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
-    # x, out, comm, sems, n, stripes, L, root, elem size, dev, stream
-    "linear_gather": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+    # x, out, sems, n, row bytes, root, piece bytes, pieces per row,
+    # blocks per pool, pools with one more, pieces per publication,
+    # threads, dev, stream
+    "linear_gather": [_P, _P, _P, _I, _LL, _I, _LL, _I, _I, _I, _I, _I, _I,
+                      _P],
     # buf, out, sems, n, row bytes, root, piece bytes, pieces per row,
     # senders, threads, dev, stream
     "linear_scatter": [_P, _P, _P, _I, _LL, _I, _LL, _I, _I, _I, _I, _P],
@@ -1626,9 +1751,80 @@ def ring_allreduce_rd(flat: torch.Tensor, op) -> torch.Tensor:
             f"recursive doubling needs a power-of-two ring, got {n}")
     if not flat.is_cuda:
         return ring_allreduce_rd_plain(flat, op)
+    return _rd_launch(flat, op)
+
+
+@functools.lru_cache(maxsize=256)
+def _rd_plan(n: int, cols: int, elem: int, sm_count: int,
+             cluster: Optional[bool] = None,
+             stripe_bytes: int = RD_STRIPE_BYTES) -> tuple[int, int, bool]:
+    """(stripes, threads per block, cluster) of ``ring_allreduce_rd`` for
+    n ranks of ``cols`` elements of ``elem`` bytes: clusters up to
+    ``RS_CLUSTER_RANKS`` ranks (unless ``cluster`` says otherwise), each
+    stripe at most ``stripe_bytes`` of whole 16-byte vectors, one a
+    thread, so its ``RD_MAX_ROUNDS`` slots fit a block's shared memory;
+    beyond, ``_stripes``' stripes of at least ``STRIPE_COLS`` columns
+    with 1024 threads, every block resident."""
+    if cluster is None:
+        cluster = n <= RS_CLUSTER_RANKS
+    elif cluster and n > RS_CLUSTER_RANKS:
+        raise ArgumentError(f"no cluster of {n} ranks (at most "
+                            f"{RS_CLUSTER_RANKS})")
+    if not cluster:
+        return _stripes(n, cols, sm_count), 1024, False
+    if stripe_bytes < 16 or stripe_bytes > 1024 * 16:
+        raise ArgumentError(f"rd stripes of {stripe_bytes} B (16 B to 16 "
+                            f"KiB: one vector a thread)")
+    vectors = max(1, -(-cols * elem // 16))
+    stripes = -(-vectors // (stripe_bytes // 16))
+    sv = -(-vectors // stripes)
+    return stripes, max(32, -(-sv // 32) * 32), True
+
+
+def _rd_launch(flat: torch.Tensor, op, cluster: Optional[bool] = None,
+               stripe_bytes: Optional[int] = None) -> torch.Tensor:
+    """Launch csrc/ring_allreduce_rd.cu on (n, L) CUDA buffers in the form
+    and stripes of the plan (``cluster`` and ``stripe_bytes`` force them:
+    the tests' and the measurement tools' choices). The cluster form
+    takes rows of whole 16-byte vectors (zero-padded here) and needs no
+    comm; the L2 form's comm and flags are the stream's scratch.
+    ``RD.last_plan`` records what was launched."""
+    n, L = flat.shape
+    if n < 2 or n & (n - 1):
+        raise ArgumentError(
+            f"recursive doubling needs a power-of-two ring, got {n}")
+    codes = _codes(op_lookup(op), flat.dtype)
+    cap = require_kernel_device(flat)
+    elem = flat.element_size()
     rounds = (n - 1).bit_length()
-    return _launch("ring_allreduce_rd", RD, flat, flat.shape, L, n * rounds,
-                   rounds, (L, rounds), _codes(op, flat.dtype))
+    stripes, threads, cluster = _rd_plan(
+        n, L, elem, cap.sm_count, cluster, stripe_bytes or RD_STRIPE_BYTES)
+    dev = flat.device.index or 0
+    if cluster:
+        vec = 16 // elem
+        cols = -(-L // vec) * vec
+        sv = -(-(cols // vec) // stripes)
+        _clusters("ring_allreduce_rd", n, threads, 16 * sv, dev)
+        comm_bytes, nflags = 0, n * stripes * RD_MAX_ROUNDS
+    else:
+        cols = L
+        comm_bytes = n * stripes * rounds * -(-L // stripes) * elem
+        nflags = n * stripes * rounds
+    x = _aligned(flat, cols)
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    comm = _scratch(x, stream, "comm", comm_bytes)
+    sems = _scratch(x, stream, "flags", nflags)
+    err = _entry("ring_allreduce_rd")(
+        x.data_ptr(), out.data_ptr(), comm.data_ptr(), sems.data_ptr(), n,
+        stripes, threads, cols, rounds, int(cluster), *codes, dev, stream)
+    if err:
+        raise KernelError(f"ring_allreduce_rd launch failed: CUDA error "
+                          f"{err}")
+    RD.launched(sems, {"form": "cluster" if cluster else "l2",
+                       "stripes": stripes, "threads": threads,
+                       "comm_bytes": comm_bytes})
+    return out[:, :L].contiguous() if cols != L else out
 
 
 def ring_reduce_scatter(blocks: torch.Tensor, op) -> torch.Tensor:
@@ -1683,7 +1879,8 @@ def _rs_plan(n: int, block_bytes: int, sm_count: int,
 @functools.lru_cache(maxsize=64)
 def _clusters(name: str, n: int, threads: int, seg_bytes: int,
               device: int) -> int:
-    """Clusters of a wavefront kernel's n blocks (csrc/<name>.cu) that the
+    """Clusters of a cluster kernel's n blocks (csrc/<name>.cu; its
+    segment, or recursive doubling's stripe, of ``seg_bytes``) that the
     card holds at once (the cluster launch runs the rest after them)."""
     fn = getattr(build.library(name), f"ompi_{name}_clusters")
     fn.argtypes, fn.restype = [_I, _I, _LL, _I], ctypes.c_int
@@ -2005,8 +2202,64 @@ def linear_gather(flat: torch.Tensor, root: int = 0) -> torch.Tensor:
     _check_root(root, n)
     if not flat.is_cuda:
         return linear_gather_plain(flat, root)
-    return _launch("linear_gather", GATHER, flat, flat.shape, L, 0, 2,
-                   (L, root), (flat.element_size(),))
+    return _gather_launch(flat, root)
+
+
+def _gather_plan(n: int, row_bytes: int, sm_count: int,
+                 piece: int = GATHER_PIECE_BYTES,
+                 per_sm: int = GATHER_BLOCKS_PER_SM) -> tuple[int, int, int]:
+    """(blocks per pool, pools with one block more, pieces per row) of
+    ``linear_gather``: rows of ``row_bytes`` cut into ``piece``-byte
+    pieces; the ``per_sm`` x SM resident slots split into n pools, one
+    per rank, as equal as they divide (the first pools one block more),
+    no pool with more blocks than its row has pieces."""
+    slots = per_sm * sm_count
+    if n > slots:
+        raise KernelError(f"{n} ranks need {n} resident blocks; the card "
+                          f"holds {slots}")
+    pieces = max(1, -(-row_bytes // piece))
+    pool, extra = divmod(slots, n)
+    if pieces <= pool:
+        return pieces, 0, pieces
+    return pool, extra, pieces
+
+
+def _gather_launch(flat: torch.Tensor, root: int,
+                   piece: Optional[int] = None, threads: Optional[int] = None,
+                   per_sm: Optional[int] = None, publish: Optional[int] = None,
+                   defines: tuple = ()) -> torch.Tensor:
+    """Launch csrc/linear_gather.cu on (n, L) CUDA blocks with
+    ``GATHER_*``'s pieces, threads, blocks per SM and pieces per
+    publication (or the ones given: the tests' and the measurement tools'
+    choices; ``defines`` names a probe build). ``GATHER.last_plan``
+    records what was launched."""
+    n, L = flat.shape
+    _check_root(root, n)
+    piece = piece or GATHER_PIECE_BYTES
+    threads = threads or GATHER_THREADS
+    publish = publish or GATHER_PUBLISH_PIECES
+    if piece % 16 or publish < 1:
+        raise ArgumentError(f"gather pieces must be 16-byte multiples "
+                            f"published at least one at a time, got {piece}"
+                            f" B, {publish} a publication")
+    cap = require_kernel_device(flat)
+    x = _aligned(flat, L)
+    row = L * flat.element_size()
+    pool, extra, pieces = _gather_plan(n, row, cap.sm_count, piece,
+                                       per_sm or GATHER_BLOCKS_PER_SM)
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    sems = _scratch(x, stream, "flags", n * GATHER_WORDS)
+    err = _entry("linear_gather", defines)(
+        x.data_ptr(), out.data_ptr(), sems.data_ptr(), n, row, root, piece,
+        pieces, pool, extra, publish, threads, x.device.index or 0, stream)
+    if err:
+        raise KernelError(f"linear_gather launch failed: CUDA error {err}")
+    GATHER.launched(sems, {"blocks": n * pool + extra, "pool_blocks": pool,
+                           "pools_with_one_more": extra, "threads": threads,
+                           "piece_bytes": piece, "pieces": n * pieces,
+                           "publish_pieces": publish})
+    return out
 
 
 def linear_scatter(buf: torch.Tensor, root: int = 0) -> torch.Tensor:

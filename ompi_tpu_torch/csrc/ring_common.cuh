@@ -23,6 +23,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace ompi_ring {
 
 constexpr int kThreads = 1024;
@@ -194,10 +197,10 @@ __device__ __forceinline__ void raise_flag(int* flag, int v = 1) {
 // Polls of a flag before the waiter starts to sleep between polls.
 constexpr int kHotPolls = 256;
 
-// Thread 0 only: spin with acquire loads until the flag reaches v, then
-// take v off it. The first kHotPolls polls do not sleep; a wait longer
-// than kDeadlockNs traps.
-__device__ __forceinline__ void acquire_flag(int* flag, int v = 1) {
+// Thread 0 only: spin with acquire loads until the flag reaches v, and
+// leave it as it is (a credit that several blocks read). The first
+// kHotPolls polls do not sleep; a wait longer than kDeadlockNs traps.
+__device__ __forceinline__ void await_flag(int* flag, int v = 1) {
   Flag f(*flag);
   int polls = 0;
   unsigned long long t0 = 0;
@@ -207,7 +210,12 @@ __device__ __forceinline__ void acquire_flag(int* flag, int v = 1) {
     __nanosleep(32);
     if (global_ns() - t0 > kDeadlockNs) __trap();
   }
-  f.fetch_sub(v, cuda::memory_order_relaxed);
+}
+
+// Thread 0 only: await_flag, then take v off the flag.
+__device__ __forceinline__ void acquire_flag(int* flag, int v = 1) {
+  await_flag(flag, v);
+  Flag(*flag).fetch_sub(v, cuda::memory_order_relaxed);
 }
 
 // ---- a thread-block cluster's shared memory: buffers and flags that the
@@ -269,15 +277,33 @@ __device__ __forceinline__ void cluster_sync() {
           : "memory");
 }
 
-// A launch of clusters of `size` <= 8 blocks (the portable cluster size)
-// of `threads`, on `stream`; sets the kernel's shared-memory attribute
-// first.
-inline cudaError_t cluster_config(const void* fn, int size, int threads,
-                                  size_t smem, int blocks, void* stream,
-                                  cudaLaunchConfig_t* cfg,
-                                  cudaLaunchAttribute* attr) {
+// Raise a kernel's dynamic shared-memory limit to at least `smem` bytes
+// on `device`, once: cudaFuncSetAttribute costs host time on every call
+// (tools/gather_rd_check.py), and a limit once raised holds for every
+// later launch of the kernel in this process.
+inline cudaError_t smem_limit(const void* fn, int device, size_t smem) {
+  struct Set {
+    const void* fn;
+    int device;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static std::vector<Set> done;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Set& s : done)
+    if (s.fn == fn && s.device == device && s.smem >= smem)
+      return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) done.push_back({fn, device, smem});
+  return err;
+}
+
+// A launch of clusters of `size` <= 8 blocks (the portable cluster size)
+// of `threads`, on `stream`.
+inline void cluster_config(int size, int threads, size_t smem, int blocks,
+                           void* stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = size;
   attr->val.clusterDim.y = 1;
@@ -289,21 +315,20 @@ inline cudaError_t cluster_config(const void* fn, int size, int threads,
   cfg->stream = (cudaStream_t)stream;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return err;
 }
 
-// Launch `blocks` blocks in clusters of `size` (see cluster_config).
-// Returns the CUDA error (0 on success).
+// Launch `blocks` blocks in clusters of `size` (see cluster_config), the
+// kernel's shared-memory limit raised first (smem_limit). Returns the
+// CUDA error (0 on success).
 inline int launch_clusters(const void* fn, int size, int threads,
                            size_t smem, int blocks, void** args, int device,
                            void* stream) {
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = smem_limit(fn, device, smem);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  if (err == cudaSuccess)
-    err = cluster_config(fn, size, threads, smem, blocks, stream, &cfg,
-                         &attr);
+  cluster_config(size, threads, smem, blocks, stream, &cfg, &attr);
   if (err == cudaSuccess) err = cudaLaunchKernelExC(&cfg, fn, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -313,11 +338,12 @@ inline int launch_clusters(const void* fn, int size, int threads,
 // dynamic shared memory) the card holds at once, or minus the CUDA error.
 inline int max_clusters(const void* fn, int size, int threads, size_t smem,
                         int device) {
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = smem_limit(fn, device, smem);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  if (err == cudaSuccess)
-    err = cluster_config(fn, size, threads, smem, size, nullptr, &cfg, &attr);
+  cluster_config(size, threads, smem, size, nullptr, &cfg, &attr);
   int clusters = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);

@@ -29,7 +29,8 @@ events, after two warm-ups) of, at n = 8:
   segments), ``selfdma_chunked`` at 1 GiB and 4 KiB on one rank,
   ``ring_allgather`` at 128 MiB and 512 B sent per rank (1 GiB and 4 KiB
   received), ``ring_alltoall`` at 1 GiB sent per rank, ``linear_gather``
-  at 1 GiB per rank (root 3), ``quant_allreduce`` at 1 GiB per rank
+  at 1 GiB per rank (root 3) and ``x.clone()`` of its input beside it,
+  ``quant_allreduce`` at 1 GiB per rank
   (float32 SUM), ``allreduce_block_rsag`` (the reduce-scatter, then the
   allgather) at 1 GiB per rank (float32 SUM, 5 launches);
 - ``ppermute_shift`` at 8 MiB per rank (bfloat16, shift 1) and
@@ -136,6 +137,7 @@ def main() -> int:
     out["ring_allreduce_chunked_1GiB_ms"] = p50(
         lambda: pr.ring_allreduce_chunked(inp, "sum", seg))
     out["linear_gather_1GiB_ms"] = p50(lambda: pr.linear_gather(x, 3))
+    out["gather_clone_1GiB_ms"] = p50(lambda: x.clone())
     out["allreduce_block_rsag_1GiB_ms"] = p50(
         lambda: pr.allreduce_block_rsag(x, "sum"), 5)
     from ompi_tpu_torch.coll import quant

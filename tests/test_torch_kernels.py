@@ -260,9 +260,61 @@ def test_scatter_matches_plain_at_several_plans(cuda, n, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT) + ["float16", "float64", "int8"])
+@pytest.mark.parametrize("n", [2, 3, 8, 12])
+def test_gather_matches_plain_at_several_plans(cuda, n, dtype):
+    """The gather's pools at rows that are not whole 16-byte vectors (the
+    ragged head and tail copied byte by byte inside the kernel), at the
+    plan's pieces and pools, at 16- and 48-byte pieces, and at one and
+    four blocks a SM (pools of other sizes, unequal at n = 3 and 8 over
+    132 SMs), publishing every piece, every third and the plan's, on a
+    view that does not start at a row: bitwise its plain
+    version and the input rows, every flag at 0. It copies bytes: any
+    dtype."""
+    plans = ((None, None, None), (16, None, 1), (48, 1, 3), (4096, 4, None))
+    for cols in (333, 70001):
+        x = _input(n, cols + 1, "int32", cuda).to(getattr(torch, dtype))
+        for flat in (x[:, :cols], x[:, 1:]):
+            for root in (0, n - 1):
+                want = pr.linear_gather_plain(flat, root)
+                assert torch.equal(want, flat)
+                for piece, per_sm, publish in plans:
+                    got = _launched_once(pr.GATHER, lambda: pr._gather_launch(
+                        flat, root, piece, per_sm=per_sm, publish=publish))
+                    plan = pr.GATHER.last_plan
+                    assert plan["blocks"] >= n and plan["pool_blocks"] >= 1
+                    assert torch.equal(got, want), (cols, root, piece, per_sm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
+def test_rd_forms_match_plain_on_card(cuda, n, dtype):
+    """Recursive doubling in the plan's form (a cluster's shared memory
+    up to 8 ranks, global memory beyond), at other stripes of the cluster
+    form, and in the L2 form forced, at rows the 16-byte vectors pad and
+    at the tier's sizes: bitwise the plain version, every flag at 0."""
+    for elems in (33, 1000, 2500, 70001):
+        x = _input(n, elems, dtype, cuda)
+        for op in OPS:
+            want = pr.ring_allreduce_rd_plain(x, op)
+            forms = [(None, None), (False, None)]
+            if n <= pr.RS_CLUSTER_RANKS:
+                forms += [(True, 64), (True, 4096)]
+            for cluster, stripe in forms:
+                got = _launched_once(pr.RD, lambda: pr._rd_launch(
+                    x, op, cluster=cluster, stripe_bytes=stripe))
+                form = pr.RD.last_plan["form"]
+                assert form == ("cluster" if cluster is not False
+                                and n <= pr.RS_CLUSTER_RANKS else "l2")
+                assert torch.equal(_bits(got), _bits(want)), (elems, op,
+                                                              cluster, stripe)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["ring", "tree", "bcast", "rs", "rs-l2",
                                     "ag", "ag-l2", "chunked", "chunked-l2",
-                                    "scatter"])
+                                    "scatter", "gather", "rd", "rd-l2"])
 def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
                                                                 kernel):
     """50 back-to-back launches at n = 8 give the same bits, every flag
@@ -288,6 +340,14 @@ def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
     elif kernel == "scatter":  # several pieces a row, a ragged tail
         x = _input(8, 3 * pr.SCATTER_PIECE_BYTES // 4 + 77, "float32", cuda)
         run, counter = (lambda: pr.linear_scatter(x, 5)), pr.SCATTER
+    elif kernel == "gather":  # several pieces a row, a ragged tail
+        x = _input(8, 3 * pr.GATHER_PIECE_BYTES // 4 + 77, "float32", cuda)
+        run, counter = (lambda: pr.linear_gather(x, 3)), pr.GATHER
+    elif kernel.startswith("rd"):  # in a cluster's shared memory, or L2
+        x = _input(8, 1000, "float32", cuda)
+        cluster = None if kernel == "rd" else False
+        run, counter = (lambda: pr._rd_launch(x, "sum", cluster=cluster)), \
+            pr.RD
     elif kernel.startswith("ag"):  # its buffers in shared memory, or L2
         x = _input(8, 40 * pr.AG_SEG_BYTES // 4 + 77, "float32", cuda)
         cluster = kernel == "ag"
@@ -364,6 +424,16 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         pr.ring_alltoall(x[:, :1])
     with pytest.raises(ArgumentError):
         pr.linear_scatter(x[:, 0], root=2)
+    with pytest.raises(ArgumentError):
+        pr.linear_gather(x[:, 0], root=2)
+    with pytest.raises(ArgumentError):
+        pr._gather_launch(x[:, 0], 0, piece=24)  # not a 16-byte multiple
+    with pytest.raises(ArgumentError):
+        pr.ring_allreduce_rd(x[:, 0], "sum")  # no float16 kernel
+    with pytest.raises(ArgumentError):
+        pr.ring_allreduce_rd(torch.ones(6, 128, device=cuda), "sum")
+    with pytest.raises(ArgumentError):  # clusters hold at most 8 ranks
+        pr._rd_launch(torch.ones(16, 128, device=cuda), "sum", cluster=True)
 
 
 def _programs(n):
