@@ -72,13 +72,19 @@ Phases (any failure raises and exits non-zero):
    segments than a stage's rounds, as many and more (the last ragged) at
    n in {3, 8, 12}, its buffers in a cluster's shared memory and in L2
    (in L2 only at n = 12); ``selfdma_chunked`` at 1, 3 and 8
-   segments in six dtypes; ``quant_allreduce`` (SUM) at n in {2, 3, 8}
-   for float32 and bfloat16 inputs at three row counts each, ragged,
-   with stripes that do not divide the rows. Then, with
-   ``torch.backends.cuda.matmul.allow_tf32 = False`` (printed):
+   segments in six dtypes; ``quant_allreduce`` (SUM) in its cluster
+   form at n in {2, 3, 8} and its L2 form at n = 12, for float32 and
+   bfloat16 inputs at two or three row counts each, ragged, with stripes
+   that do not divide the rows, at the plan's segments (fewer than the
+   2(n-1) steps) and at one-row segments (more), and on values whose
+   quotients by their scales fall on ties (multiples of 0.5). Then
    ``ppermute_shift`` bitwise against its plain version and
-   ``torch.roll`` (n = 8, 13 float32 values, the slice's 8 MiB KV block
-   in bfloat16 and 4 KiB per rank, shifts 1, -1, 3); ``ring_attention``
+   ``torch.roll`` in both forms (n = 2, 3, 8 in a cluster, with bulk
+   copies and with the threads' copy; n = 3, 8, 12 with flags), float32,
+   bfloat16 and int8, 13 values, the slice's 8 MiB KV block and 4 KiB
+   per rank, shifts 1, -1, 3. Then, with
+   ``torch.backends.cuda.matmul.allow_tf32 = False`` (printed):
+   ``ring_attention``
    at Llama-2-7B's attention widths (32 heads of 128, multi-head; the
    4096-token context over n = 8 ranks, T = 512) in bfloat16 and float32,
    causal and not, against its plain version (the protocol simulator)
@@ -185,7 +191,10 @@ Phases (any failure raises and exits non-zero):
    data-movement collectives also carry their p50 at 4 KiB per rank
    (``small_ms``), and so do the two of the schedule compiler.
    ``quant_allreduce``'s row is 1 GiB per rank with its p50 at 64 KiB
-   per rank in ``small_ms``; no single PyTorch call computes the int8
+   per rank in ``small_ms``, its plan (``plan``: form, stripes, threads,
+   segment rows) and in ``also`` its L2 form at n = 12 (about 1 GiB per
+   rank) beside its bound and the exact sum; no single PyTorch call
+   computes the int8
    wire's result, so its ``library_ms`` is null and the exact sum
    ``x.sum(0, keepdim=True).expand_as(x).contiguous()`` is timed beside
    it as ``exact_sum_ms``, for context, with the two TunedColl route
@@ -220,7 +229,12 @@ Phases (any failure raises and exits non-zero):
    (``blocks_per_relative_rank``, ``segment_cols``), each also printed
    on a line of its own.
    ``ppermute_shift``'s row is 8 MiB per rank (4 KiB in ``small_ms``),
-   its library call ``torch.roll(x, 1, 0).contiguous()``.
+   its library call ``torch.roll(x, 1, 0).contiguous()``, with its plan
+   (``plan``), its device time from ``torch.profiler`` (``device_ms``),
+   the time of an empty kernel launched as its form is
+   (``empty_launch_ms``) and the device time of ``x.clone()``, a
+   device-to-device memcpy of the same bytes (``memcpy_device_ms``), each
+   also printed on a line of its own.
    ``ring_attention``'s row is bfloat16 causal, its other three cases in
    ``also``; its bound is the larger of the bytes (q, k, v, out once)
    over 3.35 TB/s and the operations (4 S^2 H Dh, causal 4 H Dh
@@ -317,8 +331,9 @@ QUANT_ROUTE: dict = {}
 QUANT_ROUTE_REPS = 5
 PEAK = [0]  # the main path's peak device memory over its paths
 # Rows per ring block of the quant kernel's checks: at n = 2 and n = 3
-# the last count's stripes do not divide it.
-QUANT_ROWS = {2: (128, 384, 2176), 3: (128, 384, 1536), 8: (128, 384, 1152)}
+# the last count's stripes do not divide it; n = 12 takes the L2 form.
+QUANT_ROWS = {2: (128, 384, 2176), 3: (128, 384, 1536), 8: (128, 384, 1152),
+              12: (128, 384)}
 # Ring attention at Llama-2-7B's attention widths (meta-llama/Llama-2-7b-hf
 # config.json: num_attention_heads 32, hidden_size 4096, so head dim 128;
 # max_position_embeddings 4096), multi-head, the 4096-token context
@@ -799,24 +814,43 @@ def sched_kernel_vs_plain(pr, gen) -> None:
 def quant_kernel_vs_plain(gen) -> None:
     """quant_allreduce against its plain version through
     ``allreduce_block_quant`` (SUM; float32 and bfloat16 inputs, ragged
-    sizes padded to whole quanta), bitwise, every flag back at 0."""
+    sizes padded to whole quanta), in the form its plan takes (a
+    cluster's shared memory up to 8 ranks, L2 beyond), at the plan's
+    segments and at one-row segments, and on tie-heavy values, bitwise,
+    every flag back at 0."""
     import torch
     from ompi_tpu_torch.coll import quant
     from ompi_tpu_torch.core.counters import KERNELS
 
     t0 = time.time()
     checked = 0
+
+    def check(x, what):
+        nonlocal checked
+        n = x.shape[0]
+        want = quant.allreduce_block_quant(x, "sum",
+                                           quant=quant.quant_allreduce_plain)
+        for seg in (None, 1):
+            got = quant.allreduce_block_quant(
+                x, "sum", quant=lambda b: quant._quant_launch(b, seg_rows=seg))
+            torch.cuda.synchronize()
+            check_sems(KERNELS["quant_allreduce"])
+            plan = KERNELS["quant_allreduce"].last_plan
+            if plan["form"] != ("cluster" if n <= 8 else "l2"):
+                raise AssertionError(f"quant_allreduce n={n}: form {plan}")
+            equal_or_raise(got, want, f"quant_allreduce {what} {plan}")
+            checked += 1
+
     for n, row_counts in QUANT_ROWS.items():
         for dtype in (torch.float32, torch.bfloat16):
             for rows in row_counts:
                 x = random_rank_major((n, n * rows * 128 - 333), dtype, gen)
-                got = quant.allreduce_block_quant(x, "sum")
-                torch.cuda.synchronize()
-                check_sems(KERNELS["quant_allreduce"])
-                equal_or_raise(got, quant.allreduce_block_quant(
-                    x, "sum", quant=quant.quant_allreduce_plain),
-                    f"quant_allreduce n={n} {dtype} rows={rows}")
-                checked += 1
+                check(x, f"n={n} {dtype} rows={rows}")
+    # quotients by the scale on ties (multiples of 0.5 up to 127): the
+    # kernel's reciprocal path must give way to the division there
+    x = torch.randint(-254, 255, (N, N * 128 * 128), generator=gen,
+                      device="cuda").float() * 0.5
+    check(x, "ties")
     log(f"[kernel-vs-plain] quant_allreduce: {checked} cases bitwise equal, "
         f"all semaphores 0 ({time.time() - t0:.1f} s)")
 
@@ -1682,36 +1716,64 @@ def xla_reference(q, k, v, causal: bool):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def attn_kernel_vs_plain(gen) -> dict:
-    """ppermute_shift bitwise against its plain version; ring_attention
-    against its plain version and against full attention, to the JAX
-    package's tolerances, and bitwise equal to itself over 20 launches
-    at n = 8 and n = 3. Every flag back at 0 after every launch.
-    Returns kernel -> max error against the plain version."""
+def hop_kernel_vs_plain(gen) -> float:
+    """ppermute_shift bitwise against its plain version and torch.roll in
+    both forms: a cluster's barrier (n = 2, 3, 8) with bulk copies, as
+    the plan takes it for rows of whole 16-byte vectors, and with the
+    threads' copy; flags (forced at n = 3, 8; the plan's at n = 12).
+    float32, bfloat16 and int8 (13 values a rank: the threads' copy in
+    element units), the slice's 8 MiB KV block and 4 KiB per rank, every
+    shift, every flag back at 0. Returns the max error."""
     import torch
-    from ompi_tpu_torch.coll import pallas_attn as pa
     from ompi_tpu_torch.coll import pallas_ring as pr
     from ompi_tpu_torch.core.counters import KERNELS
 
     t0 = time.time()
     checked = 0
     hop_err = 0.0
-    for shape, dtype in (((N, 13), torch.float32),
-                         ((N, 2 * ATTN_T, ATTN_HEADS, ATTN_HEAD_DIM),
-                          torch.bfloat16),
-                         ((N, 4 * KIB // 2), torch.bfloat16)):
-        x = random_rank_major(shape, dtype, gen)
+    shapes = [((n, 13), dtype) for n in (2, 3, 8, 12)
+              for dtype in (torch.float32, torch.bfloat16, torch.int8)]
+    shapes += [((N, 2 * ATTN_T, ATTN_HEADS, ATTN_HEAD_DIM), torch.bfloat16),
+               ((N, 4 * KIB // 2), torch.bfloat16),
+               ((3, 4 * KIB // 4), torch.float32)]
+    for shape, dtype in shapes:
+        x = random_rank_major(shape, torch.int32, gen).to(dtype) \
+            if dtype == torch.int8 else random_rank_major(shape, dtype, gen)
+        n = shape[0]
+        flat = x.reshape(n, -1)
+        forms = [(None, None)]  # the plan's
+        if n <= 8:
+            forms += [(True, 0), (False, None)]
         for shift in HOP_SHIFTS:
-            got = pr.ppermute_shift(x, shift)
+            want = pr.ppermute_shift_plain(x, shift)
+            for cluster, piece in forms:
+                got = pr._hop_launch(flat, shift % n, cluster,
+                                     piece=piece).reshape(x.shape)
+                torch.cuda.synchronize()
+                check_sems(KERNELS["ppermute_shift"])
+                plan = KERNELS["ppermute_shift"].last_plan
+                what = f"ppermute_shift {tuple(shape)} {dtype} shift={shift}"
+                hop_err = max(hop_err, equal_or_raise(got, want,
+                                                      f"{what} {plan}"))
+                equal_or_raise(got, torch.roll(x, shift, 0), f"{what} roll")
+                checked += 1
+            got = pr.ppermute_shift(x, shift)  # the entry point
             torch.cuda.synchronize()
-            check_sems(KERNELS["ppermute_shift"])
-            hop_err = max(hop_err, equal_or_raise(
-                got, pr.ppermute_shift_plain(x, shift),
-                f"ppermute_shift {tuple(shape)} {dtype} shift={shift}"))
-            equal_or_raise(got, torch.roll(x, shift, 0), "ppermute vs roll")
-            checked += 1
-    log(f"[kernel-vs-plain] ppermute_shift: {checked} cases bitwise equal, "
-        f"all semaphores 0 ({time.time() - t0:.1f} s)")
+            equal_or_raise(got, want, f"ppermute_shift {tuple(shape)}")
+    log(f"[kernel-vs-plain] ppermute_shift: {checked} cases bitwise equal "
+        f"in both forms, all semaphores 0 ({time.time() - t0:.1f} s)")
+    return hop_err
+
+
+def attn_kernel_vs_plain(gen) -> dict:
+    """ring_attention against its plain version and against full
+    attention, to the JAX package's tolerances, and bitwise equal to
+    itself over 20 launches at n = 8 and n = 3. Every flag back at 0
+    after every launch. Returns kernel -> max error against the plain
+    version."""
+    import torch
+    from ompi_tpu_torch.coll import pallas_attn as pa
+    from ompi_tpu_torch.core.counters import KERNELS
 
     attn_err = 0.0
     for dtype, causal in ATTN_CASES:
@@ -1766,7 +1828,7 @@ def attn_kernel_vs_plain(gen) -> dict:
             log(f"[races] ring_attention n={n} {dtype} causal: "
                 f"{RACE_LAUNCHES} launches bitwise equal, all semaphores 0 "
                 f"({time.time() - t0:.1f} s)")
-    return {"ppermute_shift": hop_err, "ring_attention": attn_err}
+    return {"ring_attention": attn_err}
 
 
 def attention_path(config, counters, gen) -> dict:
@@ -2126,9 +2188,12 @@ def measure(pr, gen, errs, launches) -> list:
             extra += chunked_also(pr, gen, row)
         if kernel == "selfdma_chunked":
             extra += selfdma_split(pr, gen, row)
+        if kernel == "quant_allreduce":
+            extra += quant_also(gen, row)
         if kernel in ("ring_allreduce_bidir", "ring_allreduce_chunked",
                       "linear_scatter", "sched_table", "selfdma_chunked",
-                      "ring_allreduce_rd", "linear_gather"):
+                      "ring_allreduce_rd", "linear_gather",
+                      "quant_allreduce"):
             row["plan"] = plan
             log(f"[plan] {kernel} at {nbytes} B/rank: {plan}")
         if kernel == "ring_allreduce_rd":
@@ -2235,6 +2300,35 @@ def chunked_also(pr, gen, row) -> str:
             f"{GIB} B/rank {rsag['ms']:.4f} ms")
 
 
+def quant_also(gen, row) -> str:
+    """The int8 ring's L2 form at n = 12 (about 1 GiB per rank, whole
+    quanta) beside its bound and the exact sum: a p50 and its plan into
+    ``row["also"]``; returns the log text."""
+    import torch
+    from ompi_tpu_torch.coll import quant
+
+    n = 12
+    quantum = n * 128 * 128
+    size = GIB // 4 // quantum * quantum  # float32 per rank
+    x = random_rank_major((n, size), torch.float32, gen)
+    blocks = x.reshape(n, n, -1, 128)
+    l2 = {"nranks": n, "bytes_per_rank": size * 4,
+          "ms": p50_ms(lambda: quant.quant_allreduce(blocks), KERNEL_REPS),
+          "plan": dict(quant.QUANT.last_plan),
+          "bound_ms": 2 * n * size * 4 / HBM_BYTES_PER_S * 1e3,
+          "bound_by": "bytes", "library_ms": None,
+          "exact_sum_ms": p50_ms(lambda: x.sum(0, keepdim=True).expand_as(
+              x).contiguous(), KERNEL_REPS)}
+    if l2["plan"]["form"] != "l2":
+        raise AssertionError(f"quant_allreduce n = 12: {l2['plan']}")
+    check_sems(quant.QUANT)
+    del x, blocks
+    torch.cuda.empty_cache()
+    row["also"] = [l2]
+    return (f"; n = 12 (L2) {l2['ms']:.4f} ms (bound {l2['bound_ms']:.4f}, "
+            f"exact sum {l2['exact_sum_ms']:.4f}), plan {l2['plan']}")
+
+
 def device_ms(split: dict) -> float:
     """The device time of the one kernel a profiled call launched."""
     times = [v for k, v in split.items() if k.endswith(" device")]
@@ -2333,6 +2427,38 @@ def rd_split(pr, gen, row) -> str:
             f"card, empty launch {row['empty_launch_ms']:.5f} ms")
 
 
+def hop_split(pr, x, row) -> None:
+    """The ring hop at its main-path size: the plan its timed launches
+    ran, its device time from ``torch.profiler`` beside that of
+    ``x.clone()`` (a device-to-device memcpy of the same bytes), and an
+    empty kernel launched as its form is (``tools/gather_rd_check.py``),
+    timed as the row is. Adds them to ``row``, each printed on a line of
+    its own."""
+    from ompi_tpu_torch.tools.gather_rd_check import empty_launch
+    from ompi_tpu_torch.tools.ring_probe import profile
+
+    pr.ppermute_shift(x, 1)
+    plan = row["plan"] = dict(pr.PPERMUTE.last_plan)
+    split = profile(lambda: pr.ppermute_shift(x, 1), kernel="ppermute_shift")
+    if "kernel device" not in split:
+        raise AssertionError(f"ppermute_shift: the profiler saw no device "
+                             f"time ({split})")
+    row["device_ms"] = split["kernel device"]
+    row["memcpy_device_ms"] = device_ms(profile(lambda: x.clone(),
+                                                kernel="no such kernel"))
+    cluster = plan["form"] == "cluster"
+    smem = 128 + 4 * plan["piece_bytes"] if plan["piece_bytes"] else 0
+    row["empty_launch_ms"] = p50_ms(empty_launch(
+        x, cluster, plan["stripes"], plan["threads"], smem), KERNEL_REPS)
+    log(f"[plan] ppermute_shift at {HOP_BYTES} B/rank: {plan}")
+    log(f"[time] ppermute_shift device time (torch.profiler, p50 of 20 "
+        f"calls): {row['device_ms']:.5f} ms")
+    log(f"[time] ppermute_shift memcpy of the same bytes (x.clone(), "
+        f"torch.profiler): {row['memcpy_device_ms']:.5f} ms on the card")
+    log(f"[time] ppermute_shift empty launch of its form: "
+        f"{row['empty_launch_ms']:.5f} ms")
+
+
 def attn_flops(causal: bool) -> float:
     """Operations of attention over the whole sequence: 4 S^2 H Dh, or
     the causal half with its diagonal, 4 H Dh S(S+1)/2."""
@@ -2374,6 +2500,7 @@ def attn_rows(gen, errs, launches) -> list:
         f"B/rank (bound {hop['bound_ms']:.5f} ms, plain "
         f"{hop['plain_ms']:.3f} ms, library {hop['library_ms']:.4f} ms), "
         f"{hop['small_ms']:.4f} ms at {4 * KIB} B/rank")
+    hop_split(pr, x, hop)
     del x, small
 
     cases = []
@@ -2481,11 +2608,13 @@ def main() -> int:
     kernel_vs_plain(pr, gen)
     sched_kernel_vs_plain(pr, gen)
     quant_kernel_vs_plain(gen)
+    hop_err = hop_kernel_vs_plain(gen)
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"[attn] torch.backends.cuda.matmul.allow_tf32 = "
         f"{torch.backends.cuda.matmul.allow_tf32} (the plain version's f32 "
         f"products in full f32)")
     attn_errs = attn_kernel_vs_plain(gen)
+    attn_errs["ppermute_shift"] = hop_err
     torch.cuda.reset_peak_memory_stats()
     errs, launches = main_path(tt, pr, config)
     errs.update(attn_errs)

@@ -61,9 +61,12 @@ Each Pallas kernel on them is a hand-written CUDA kernel here
   receiver only waits for its count, no handshake
   (``simulate_scatter``). It moves bytes, any dtype.
 - ``ppermute_shift`` (the inner kernel of ``ppermute_shift``): one ring
-  hop, every rank's block stored into rank me+shift's row, one flag per
-  receiver; it moves bytes, any dtype. Ring attention's KV hop is
-  fused into its own kernel (``pallas_attn``).
+  hop, every rank's block stored into rank me+shift's row; up to 8 ranks
+  the ranks' blocks of a stripe form a thread-block cluster whose
+  barrier certifies the receive (``simulate_ppermute``'s "cluster"
+  form), beyond one flag per receiver ("flags"); it moves bytes, any
+  dtype. Ring attention's KV hop is fused into its own kernel
+  (``pallas_attn``).
 
 Ranks on one card: a rank-major ``(n, ...)`` tensor holds n virtual
 ranks. A Pallas remote DMA becomes stores into the peer rank's comm slot
@@ -260,6 +263,25 @@ RD_STRIPE_BYTES, RD_MAX_ROUNDS = 16 << 10, 3
 #: ms, 16 KiB x 2 or 3 0.766-0.800, 4 KiB x 6 0.786, 32 KiB x 1 0.85;
 #: ``x.clone()`` 0.725-0.755 in the same runs.
 SELFDMA_PIECE_BYTES, SELFDMA_BLOCKS_PER_SM = 8 << 10, 4
+#: The ring hop's plans (csrc/ppermute_shift.cu, ``_hop_plan``): bytes of
+#: a row that one block copies at least; up to ``RS_CLUSTER_RANKS`` ranks
+#: one cluster of the n ranks' blocks per stripe, ``HOP_STRIPES_PER_SM``
+#: stripes a rank for each SM, each block one warp whose first thread
+#: streams its stripe in bulk copies of ``HOP_PIECE_BYTES`` (rows of whole
+#: 16-byte vectors) or ``HOP_THREADS`` threads that copy it; beyond, the
+#: flags form's resident blocks of 1024 threads. A bulk block's four
+#: pieces take 64 KiB of shared memory, so at most three reside on an SM
+#: and the cluster launch runs the grid in waves: the stripe count sets
+#: how the row is cut, not a residency. The sweeps at 8 MiB of bfloat16
+#: per rank, n = 8, on an NVIDIA H100 (PERF.md, tools/quant_hop_check.py),
+#: times on the card: bulk pieces of 16 KiB in stripes of at least two,
+#: 8 stripes a SM (132 stripes) 0.0484 ms, 4 a SM 0.0496, 2 a SM 0.0508;
+#: 8 KiB 0.0501-0.0585, 4 KiB 0.0577-0.0591; the threads' copy
+#: 0.0503-0.0542 over stripes of 16 KiB to 1 MiB, 256 to 1024 threads and
+#: 1 to 8 stripes a SM; the device-to-device memcpy of the same bytes
+#: 0.0452.
+HOP_STRIPE_BYTES, HOP_PIECE_BYTES, HOP_THREADS, HOP_STRIPES_PER_SM = \
+    32 << 10, 16 << 10, 512, 8
 #: Buffers per step of the reduce-scatter's and the allgather's
 #: wavefronts, one for each parity of the time slot
 #: (``simulate_ring_rs_fused``, ``simulate_ring_ag_fused``).
@@ -1032,11 +1054,19 @@ def simulate_scatter(buf: torch.Tensor, root: int = 0, *,
 
 
 def simulate_ppermute(x: torch.Tensor, shift: int = 1, *,
+                      form: str = "flags",
                       rng: Optional[random.Random] = None):
     """Run one ring hop on (n, L): rank me stores its row into row
-    (me + shift) mod n of out and signals that rank's flag, then waits
-    for its own flag, which certifies that its row has landed. Returns
-    (out, residue) as ``simulate_alltoall`` does."""
+    (me + shift) mod n of out, then learns that its own row has landed.
+    ``form`` "flags": it signals the receiver's flag and waits for its
+    own, which the sender me - shift raises. "cluster": the ranks of a
+    stripe form a cluster; after its store each rank arrives at a cluster
+    barrier and waits for the other n - 1, a superset of its one sender.
+    "unsynced": no flag and no barrier, the negative control. Returns
+    (out, residue) as ``simulate_alltoall`` does: residue also records
+    every rank that went on before its row landed."""
+    if form not in ("flags", "cluster", "unsynced"):
+        raise ArgumentError(f"unknown ring hop form {form!r}")
     n = x.shape[0]
     out = torch.empty_like(x)
     sems: dict = collections.defaultdict(int)
@@ -1046,8 +1076,16 @@ def simulate_ppermute(x: torch.Tensor, shift: int = 1, *,
         dst = (me + shift) % n
         out[dst] = x[me]
         landed.add((dst, dst))
-        sems[dst, "recv"] += 1
-        yield (me, "recv"), 1
+        if form == "flags":
+            sems[dst, "recv"] += 1
+            yield (me, "recv"), 1
+        elif form == "cluster":
+            for r in range(n):
+                if r != me:
+                    sems[r, "barrier"] += 1
+            yield (me, "barrier"), n - 1
+        else:
+            yield _PAUSE
         _early(sems, landed, me, me)
 
     _drive([rank(r) for r in range(n)], sems, rng)
@@ -1380,8 +1418,11 @@ def _flat_shift(x: torch.Tensor, shift: int) -> tuple[torch.Tensor, int]:
 
 
 def ppermute_shift_plain(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """The hop in the form its plan takes at n ranks."""
     flat, shift = _flat_shift(x, shift)
-    return _checked(simulate_ppermute(flat, shift)).reshape(x.shape)
+    form = "cluster" if x.shape[0] <= RS_CLUSTER_RANKS else "flags"
+    return _checked(simulate_ppermute(flat, shift, form=form)).reshape(
+        x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -1437,10 +1478,14 @@ _ARGTYPES = {
                     _I, _I, _I, _I, _I, _I, _I, _P],
     # x, out, blocks, piece bytes, bytes, elem size, dev, stream
     "selfdma_chunked": [_P, _P, _I, _LL, _LL, _I, _I, _P],
-    # x, out, comm, sems, n, stripes, rows, dev, stream
-    "quant_allreduce": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
-    # x, out, comm, sems, n, stripes, L, shift, elem size, dev, stream
-    "ppermute_shift": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+    # x, out, comm, sems, n, stripes, threads, rows, seg rows, n_segs,
+    # cluster, dev, stream
+    "quant_allreduce": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I,
+                        _P],
+    # x, out, sems, n, stripes, threads, L, shift, elem size, cluster,
+    # piece bytes, dev, stream
+    "ppermute_shift": [_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _LL, _I,
+                       _P],
 }
 
 
@@ -1481,36 +1526,6 @@ def _stripes(n: int, cols: int, sm_count: int,
         raise KernelError(f"{n} ranks need {n} resident blocks; the card "
                           f"has {sm_count} SMs")
     return max(1, min(sm_count // n, -(-cols // per)))
-
-
-def _launch(name: str, counter: KernelCounter, x: torch.Tensor,
-            out_shape: tuple, cols: int, slots: int, nsem: int,
-            scalars: tuple, codes: tuple, slot_elems=None) -> torch.Tensor:
-    """Launch csrc/<name>.cu on x into a new ``out_shape`` tensor. Each
-    rank is striped over blocks of ``cols`` columns; the comm scratch
-    holds ``slots`` stripe-wide slots per stripe (the kernel lays them
-    out; a slot is ``slot_elems(sw)`` elements for a stripe sw elements
-    wide where that is not sw) and the flags are (n, stripes, nsem)
-    int32, zeroed here on every launch. ``codes`` are the op and dtype
-    codes (or the element size) the C entry takes after ``scalars``."""
-    cap = require_kernel_device(x)
-    n = x.shape[0]
-    stripes = _stripes(n, cols, cap.sm_count)
-    sw = -(-cols // stripes)
-    x = x.contiguous()
-    out = x.new_empty(out_shape)
-    comm = x.new_empty(slots * stripes
-                       * (sw if slot_elems is None else slot_elems(sw)))
-    sems = torch.zeros(n * stripes * nsem, dtype=torch.int32,
-                       device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _entry(name)(x.data_ptr(), out.data_ptr(), comm.data_ptr(),
-                       sems.data_ptr(), n, stripes, *scalars, *codes,
-                       x.device.index or 0, stream)
-    if err:
-        raise KernelError(f"{name} launch failed: CUDA error {err}")
-    counter.launched(sems)
-    return out
 
 
 def ring_allreduce(blocks: torch.Tensor, op) -> torch.Tensor:
@@ -1838,33 +1853,38 @@ def ring_reduce_scatter(blocks: torch.Tensor, op) -> torch.Tensor:
     return _rs_launch(blocks, op)
 
 
-def _wave_plan(n: int, block_bytes: int, sm_count: int,
+def _wave_plan(n: int, size: int, sm_count: int,
                cluster: Optional[bool], forms: tuple,
-               bufs: Optional[int] = None, smem: int = RS_SMEM_BYTES
-               ) -> tuple[int, int, int, bool]:
-    """(stripes, threads per block, segment bytes, cluster) of a
-    wavefront kernel (``ring_reduce_scatter``, ``ring_allgather``,
-    ``ring_allreduce_chunked``) for n ranks of ``block_bytes``-byte ring
-    blocks: clusters up to ``RS_CLUSTER_RANKS`` ranks (unless ``cluster``
-    says otherwise), each form (``forms``: the cluster's, then the L2
-    one's) with its segment, threads and blocks per SM; stripes of at
-    least a segment, as many as that many blocks per SM allow; segments
-    no longer than a stripe, and shortened until a block's ``bufs`` x
-    RS_BUFS buffers (``bufs`` forwarded steps; default n-2) take at most
-    ``smem`` bytes of its shared memory (clusters) or all blocks' at most
-    ``RS_SLOT_BYTES`` (L2)."""
+               bufs: Optional[int] = None, smem: int = RS_SMEM_BYTES,
+               quantum: int = 16, unit_bytes: int = 1, slack: int = 0,
+               per_warp: bool = False) -> tuple[int, int, int, bool]:
+    """(stripes, threads per block, segment, cluster) of a wavefront
+    kernel (``ring_reduce_scatter``, ``ring_allgather``,
+    ``ring_allreduce_chunked``, ``quant_allreduce``) for n ranks of ring
+    blocks of ``size`` units (bytes; the int8 ring's rows): clusters up to
+    ``RS_CLUSTER_RANKS`` ranks (unless ``cluster`` says otherwise), each
+    form (``forms``: the cluster's, then the L2 one's) with its segment,
+    threads and blocks per SM; stripes of at least a segment (or, with
+    ``per_warp``, a unit per warp), as many as that many blocks per SM
+    allow; segments of whole ``quantum`` units, no longer than a stripe,
+    and shortened until a block's ``bufs`` x RS_BUFS buffers (``bufs``
+    forwarded steps; default n-2) of at most ``unit_bytes`` a unit plus
+    ``slack`` take at most ``smem`` bytes of its shared memory (clusters)
+    or all blocks' at most ``RS_SLOT_BYTES`` (L2)."""
     if cluster is None:
         cluster = n <= RS_CLUSTER_RANKS
     elif cluster and n > RS_CLUSTER_RANKS:
         raise ArgumentError(f"no cluster of {n} ranks (at most "
                             f"{RS_CLUSTER_RANKS})")
     seg, threads, per_sm = forms[0] if cluster else forms[1]
-    stripes = _stripes(n, block_bytes, per_sm * sm_count, seg)
-    seg = min(seg, -(-block_bytes // 16 // stripes) * 16)
+    least = max(1, threads // 32) if per_warp else seg
+    stripes = _stripes(n, size, per_sm * sm_count, least)
+    seg = min(seg, -(-size // quantum // stripes) * quantum)
     per_block = RS_BUFS * (max(n - 2, 0) if bufs is None else bufs)
     budget = smem if cluster else RS_SLOT_BYTES // (n * stripes)
     if per_block:
-        seg = min(seg, max(16, budget // per_block // 16 * 16))
+        most = (budget // per_block - slack) // unit_bytes
+        seg = min(seg, max(quantum, most // quantum * quantum))
     return stripes, threads, seg, cluster
 
 
@@ -2187,9 +2207,28 @@ def ring_alltoall(x: torch.Tensor) -> torch.Tensor:
             f"alltoall input must be (n, n, W), got {tuple(x.shape)}")
     if not x.is_cuda:
         return ring_alltoall_plain(x)
-    W = x.shape[2]
-    return _launch("ring_alltoall", ALLTOALL, x, x.shape, W, 0, n - 1,
-                   (W,), (x.element_size(),))
+    return _alltoall_launch(x)
+
+
+def _alltoall_launch(x: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/ring_alltoall.cu on (n, n, W) CUDA blocks: each rank
+    striped over blocks of at least ``STRIPE_COLS`` columns, its (n,
+    stripes, n - 1) flags the stream's scratch (each wait takes its flag
+    back to 0)."""
+    cap = require_kernel_device(x)
+    n, W = x.shape[0], x.shape[2]
+    stripes = _stripes(n, W, cap.sm_count)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    sems = _scratch(x, stream, "flags", n * stripes * (n - 1))
+    err = _entry("ring_alltoall")(
+        x.data_ptr(), out.data_ptr(), None, sems.data_ptr(), n, stripes, W,
+        x.element_size(), x.device.index or 0, stream)
+    if err:
+        raise KernelError(f"ring_alltoall launch failed: CUDA error {err}")
+    ALLTOALL.launched(sems)
+    return out
 
 
 def linear_gather(flat: torch.Tensor, root: int = 0) -> torch.Tensor:
@@ -2332,9 +2371,72 @@ def ppermute_shift(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     if not x.is_cuda:
         return ppermute_shift_plain(x, shift)
     flat, shift = _flat_shift(x, shift)
-    L = flat.shape[1]
-    return _launch("ppermute_shift", PPERMUTE, flat, flat.shape, L, 0, 1,
-                   (L, shift), (flat.element_size(),)).reshape(x.shape)
+    return _hop_launch(flat, shift).reshape(x.shape)
+
+
+@functools.lru_cache(maxsize=256)
+def _hop_plan(n: int, row_bytes: int, sm_count: int,
+              cluster: Optional[bool] = None, bulk: bool = True,
+              stripe_bytes: int = HOP_STRIPE_BYTES,
+              per_sm: int = HOP_STRIPES_PER_SM
+              ) -> tuple[int, int, bool, int]:
+    """(stripes, threads per block, cluster, piece bytes) of
+    ``ppermute_shift`` for n ranks of ``row_bytes``-byte rows: clusters
+    up to ``RS_CLUSTER_RANKS`` ranks (unless ``cluster`` says otherwise),
+    stripes of at least ``stripe_bytes``, at most ``per_sm`` a rank for
+    each SM (the cluster launch runs them in waves), each block one warp
+    streaming bulk copies of ``HOP_PIECE_BYTES``
+    (``bulk``: rows of whole 16-byte vectors) or ``HOP_THREADS`` threads
+    copying (piece 0); beyond, ``_stripes``' resident blocks of 1024
+    threads."""
+    if cluster is None:
+        cluster = n <= RS_CLUSTER_RANKS
+    elif cluster and n > RS_CLUSTER_RANKS:
+        raise ArgumentError(f"no cluster of {n} ranks (at most "
+                            f"{RS_CLUSTER_RANKS})")
+    if not cluster:
+        return _stripes(n, row_bytes, sm_count, stripe_bytes), 1024, False, 0
+    stripes = _stripes(n, row_bytes, per_sm * sm_count, stripe_bytes)
+    if bulk:
+        return stripes, 32, True, HOP_PIECE_BYTES
+    return stripes, HOP_THREADS, True, 0
+
+
+def _hop_launch(flat: torch.Tensor, shift: int,
+                cluster: Optional[bool] = None,
+                stripe_bytes: Optional[int] = None,
+                threads: Optional[int] = None,
+                per_sm: Optional[int] = None,
+                piece: Optional[int] = None) -> torch.Tensor:
+    """Launch csrc/ppermute_shift.cu on (n, L) CUDA rows, shift in [0,
+    n), in the form, stripes and copy of the plan (or the ones given: the
+    tests' and the measurement tools' choices; ``piece`` 0 forces the
+    threads' copy). The cluster form needs no flags; the flags form's are
+    the stream's scratch. ``PPERMUTE.last_plan`` records what was
+    launched."""
+    n, L = flat.shape
+    cap = require_kernel_device(flat)
+    x = flat.contiguous()
+    elem = x.element_size()
+    bulk = piece != 0 and (x.data_ptr() | L * elem) % 16 == 0
+    stripes, plan_threads, cluster, plan_piece = _hop_plan(
+        n, L * elem, cap.sm_count, cluster, bulk,
+        stripe_bytes or HOP_STRIPE_BYTES, per_sm or HOP_STRIPES_PER_SM)
+    threads = threads or plan_threads
+    piece = plan_piece if piece is None else piece
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    sems = _no_flags(x.device) if cluster else _scratch(
+        x, stream, "flags", n * stripes)
+    err = _entry("ppermute_shift")(
+        x.data_ptr(), out.data_ptr(), sems.data_ptr(), n, stripes, threads,
+        L, shift, elem, int(cluster), piece, x.device.index or 0, stream)
+    if err:
+        raise KernelError(f"ppermute_shift launch failed: CUDA error {err}")
+    PPERMUTE.launched(sems, {"form": "cluster" if cluster else "flags",
+                             "stripes": stripes, "threads": threads,
+                             "piece_bytes": piece})
+    return out
 
 
 # ---------------------------------------------------------------------------

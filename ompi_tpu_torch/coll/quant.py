@@ -27,11 +27,15 @@ one f32 scale per row, whatever ``coll_quant_wire`` and
 ``coll_quant_block`` say, as in the JAX package. Its wrapper
 ``quant_allreduce`` launches the kernel for a CUDA tensor and runs the
 plain version, the flag-level protocol simulator
-``simulate_quant_ring``, for a CPU one. The kernel credits a slot right
-after the send from it and has no post-seed credit; the JAX kernel
-credits after filling the slot it still has to send from
-(``quant.py:375-377``, ``:416-421``), which loses partials when ranks
-truly run at once. ``simulate_quant_ring(credit="reference")`` shows it.
+``simulate_quant_ring``, for a CPU one. The kernel makes one pass per
+step in a wavefront over segments of rows, each pass requantizing
+straight into the right neighbour's buffer (a cluster's shared memory
+up to 8 ranks, L2 beyond), and credits a buffer only after the passes
+that read it; the JAX kernel credits after filling the slot it still
+has to send from (``quant.py:375-377``, ``:416-421``), which loses
+partials when ranks truly run at once.
+``simulate_quant_ring(credit="reference")`` shows it on the first
+port's lock-step schedule (``form="lockstep"``).
 
 Exactness rules: only SUM on floating-point payloads goes over the
 quantized wire. Order statistics (MAX/MIN), non-commutative ops, joint
@@ -58,15 +62,19 @@ import functools
 import random
 from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core import config
 from ..core.counters import SPC, KernelCounter
-from ..core.errors import ArgumentError
+from ..core.device import require_kernel_device
+from ..core.errors import ArgumentError, KernelError
 from ..ops import Op, lookup as op_lookup
-from .pallas_ring import (LANES, _PAUSE, _check_credit, _checked, _drive,
-                          _launch, _residue)
+from .pallas_ring import (CHUNKED_SMEM_BYTES, LANES, RS_BUFS, _PAUSE,
+                          _ch_forwards, _checked, _clusters, _drive, _entry,
+                          _plain_seg, _raw_stream, _residue, _scratch,
+                          _wave_plan)
 
 __all__ = [
     "supports", "quantize_block_scaled", "dequantize_block_scaled",
@@ -358,7 +366,7 @@ def _dequant_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The kernel's plain version: its slot and flag protocol, rank by rank.
+# The kernel's plain version: its buffer and flag protocol, rank by rank.
 # ---------------------------------------------------------------------------
 
 def _quant_blocks(blocks: torch.Tensor) -> tuple[int, int]:
@@ -376,23 +384,134 @@ def _quant_blocks(blocks: torch.Tensor) -> tuple[int, int]:
     return n, blocks.shape[2]
 
 
-def simulate_quant_ring(blocks: torch.Tensor, *, credit: str = "port",
+def _dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """(rows, 128) int8 and (rows, 1) f32 scales -> (rows, 128) f32."""
+    return q.to(torch.float32) * s
+
+
+def _np_quantize(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``_quantize`` on a float32 numpy array, in the same IEEE
+    operations (a division, rounding half to even, the clip)."""
+    m = np.abs(v).max(axis=-1, keepdims=True)
+    scale = np.where(m > 0, m / np.float32(_INT8_LEVELS), np.float32(1))
+    q = np.clip(np.rint(v / scale), -_INT8_LEVELS, _INT8_LEVELS)
+    return q.astype(np.int8), scale
+
+
+def _np_dequantize(q: np.ndarray, s: np.ndarray) -> np.ndarray:
+    return q.astype(np.float32) * s
+
+
+def simulate_quant_ring(blocks: torch.Tensor, *, form: str = "wavefront",
+                        credit: str = "port",
+                        seg_rows: Optional[int] = None, stripes: int = 1,
                         rng: Optional[random.Random] = None):
-    """Run the quantized ring's slot and flag schedule on ``blocks``
-    (n, n, rows, 128) f32, rank by rank (``pallas_ring._drive``):
-    2(n-1) steps over two comm slots per rank, each holding int8 rows
-    and one f32 scale per row. A step waits for the credit of the
-    right neighbour's slot (from step 1), stores the pair into it,
-    signals its one receive flag, waits for its own, then folds: at a
-    reduce-scatter step ``requant(dequant(arrival) + x[blk])`` back into
-    the slot (at the last one also its dequantized image into out), at
-    an allgather step ``dequant(arrival)`` into out. ``credit`` "port"
-    credits a slot to the left neighbour right after the send from it
-    (every step but the last), the kernel's placement; "reference" is
-    the JAX kernel's (a post-seed credit, then one right after filling
-    the slot). Returns (out, residue): residue maps every flag not back
-    at 0 to its count."""
-    _check_credit(credit)
+    """Run the quantized ring's buffer and flag schedule on ``blocks``
+    (n, n, rows, 128) f32, rank by rank (``pallas_ring._drive``); returns
+    (out, residue): residue maps every flag not back at 0 to its count.
+
+    ``form`` "wavefront" is the kernel's: the rows are cut into
+    ``stripes`` stripes, each a thread block of every rank with its own
+    buffers and flags (one program per (rank, stripe)), and each stripe
+    into segments of ``seg_rows`` rows (the last ragged; default one).
+    Step k of segment i at rank me: a reduce-scatter step (k < n-1)
+    stores ``requant(dequant(arrival) + x[me][me-k-2])`` into the right's
+    buffer for step k+1 (at k = n-2 also its dequantized image into
+    out[me][me]); an allgather step stores ``dequant(arrival)`` into
+    out[me][me-(k-n+2)] and forwards the arrival's bytes and scales (but
+    at the last step). Step 0's arrival is the left's seed,
+    ``quant(x[left][me-2])``, computed from x. In time slot t rank me
+    makes step k of segment t - k for every k that has one, reading
+    buffers (k, t mod 2); waits and raises are
+    ``pallas_ring.simulate_ring_chunked``'s (``_ch_forwards``), so every
+    flag ends at 0. ``credit`` "port" credits a buffer to the left after
+    the passes that read it; "before_read" before them, the negative
+    control.
+
+    ``form`` "lockstep" is the first port's schedule, one stripe: 2(n-1)
+    steps over two comm slots per rank; a step waits for the credit of
+    the right neighbour's slot (from step 1), stores the pair into it,
+    signals its one receive flag, waits for its own, then folds the
+    arrival back into the slot (at the last reduce-scatter step also its
+    image into out) or, in the allgather, writes it to out. ``credit``
+    "port" credits a slot right after the send from it; "reference" (in
+    either form: it runs the lock-step schedule) is the JAX kernel's, a
+    post-seed credit, then one right after filling the slot."""
+    if credit not in ("port", "before_read", "reference"):
+        raise ArgumentError(f"unknown credit placement {credit!r}")
+    if form not in ("wavefront", "lockstep"):
+        raise ArgumentError(f"unknown quant ring form {form!r}")
+    if credit == "reference" or form == "lockstep":
+        if credit == "before_read":
+            raise ArgumentError("the before_read credit is the wavefront's")
+        return _simulate_quant_lockstep(blocks, credit, rng)
+    n, rows = _quant_blocks(blocks)
+    if stripes < 1:
+        raise ArgumentError(f"bad stripe count {stripes}")
+    sr = -(-rows // stripes)
+    seg = sr if seg_rows is None else seg_rows
+    if seg <= 0:
+        raise ArgumentError(f"bad wavefront segment {seg}")
+    n_segs = max(1, -(-sr // seg))
+    nsteps = 2 * (n - 1)
+    out = torch.empty_like(blocks)
+    buf_q = torch.empty((n, stripes, nsteps - 1, RS_BUFS, seg, LANES),
+                        dtype=torch.int8, device=blocks.device)
+    buf_s = blocks.new_empty((n, stripes, nsteps - 1, RS_BUFS, seg, 1))
+    x, o, quant, dequant = blocks, out, _quantize, _dequantize
+    if blocks.device.type == "cpu":  # numpy views: faster slices
+        x, o, buf_q, buf_s = (t.numpy() for t in (blocks, out, buf_q, buf_s))
+        quant, dequant = _np_quantize, _np_dequantize
+    sems: dict = collections.defaultdict(int)
+
+    def fwd(p):
+        return _ch_forwards(p, n, n_segs)
+
+    def rank(me, s):
+        left, right = (me - 1) % n, (me + 1) % n
+        r0, r1 = min(rows, s * sr), min(rows, (s + 1) * sr)
+
+        def span(i):
+            return slice(min(r1, r0 + i * seg), min(r1, r0 + (i + 1) * seg))
+
+        for t in range(n_segs + nsteps - 1):
+            if fwd(t - 1):
+                yield (me, s, "recv", t % 2), 1
+            if fwd(t) and fwd(t - 2):
+                yield (me, s, "cap", (t + 1) % 2), 1
+            credit_slot = fwd(t - 1) and fwd(t + 1)
+            if credit == "before_read" and credit_slot:
+                sems[left, s, "cap", t % 2] += 1
+                yield _PAUSE
+            for k in range(max(0, t - n_segs + 1), min(nsteps - 1, t) + 1):
+                c = span(t - k)
+                w = c.stop - c.start
+                if k == 0:
+                    q, sc = quant(x[left, (me - 2) % n, c])
+                else:
+                    q, sc = buf_q[me, s, k - 1, t % 2, :w], \
+                        buf_s[me, s, k - 1, t % 2, :w]
+                if k < n - 1:
+                    q, sc = quant(dequant(q, sc) + x[me, (me - k - 2) % n, c])
+                    if k == n - 2:
+                        o[me, me, c] = dequant(q, sc)
+                else:
+                    o[me, (me - k + n - 2) % n, c] = dequant(q, sc)
+                if k < nsteps - 1:
+                    buf_q[right, s, k, (t + 1) % 2, :w] = q
+                    buf_s[right, s, k, (t + 1) % 2, :w] = sc
+            if fwd(t):
+                sems[right, s, "recv", (t + 1) % 2] += 1
+            if credit == "port" and credit_slot:
+                sems[left, s, "cap", t % 2] += 1
+
+    _drive([rank(r, s) for s in range(stripes) for r in range(n)], sems, rng)
+    return out, _residue(sems)
+
+
+def _simulate_quant_lockstep(blocks: torch.Tensor, credit: str,
+                             rng: Optional[random.Random]):
+    """``simulate_quant_ring``'s "lockstep" form."""
     n, rows = _quant_blocks(blocks)
     out = torch.empty_like(blocks)
     slot_q = torch.empty((n, 2, rows, LANES), dtype=torch.int8,
@@ -441,19 +560,66 @@ def simulate_quant_ring(blocks: torch.Tensor, *, credit: str = "port",
 
 
 def quant_allreduce_plain(blocks: torch.Tensor) -> torch.Tensor:
-    return _checked(simulate_quant_ring(blocks))
+    """The kernel's wavefront on one stripe, in segments of the cluster
+    plan's rows (or longer, so that at most ``PLAIN_SEGS`` segments);
+    no bit depends on the segment."""
+    _, rows = _quant_blocks(blocks)
+    seg = _plain_seg(rows, QUANT_CLUSTER_SEG_ROWS)
+    return _checked(simulate_quant_ring(blocks, seg_rows=seg))
 
 
-#: Flags per (rank, stripe) of the kernel: recv[2], cap[2].
-QUANT_NSEM = 4
+# ---------------------------------------------------------------------------
+# The kernel: its plan and its wrapper.
+# ---------------------------------------------------------------------------
+
+#: The int8 ring's plans (csrc/quant_allreduce.cu, ``_quant_plan``): rows
+#: of a segment, threads per block and blocks per SM, in the chunked
+#: ring's two forms. Up to ``RS_CLUSTER_RANKS`` ranks one cluster of the n
+#: ranks' blocks per stripe, a block's (2n-3) x RS_BUFS buffers within
+#: its share of ``CHUNKED_SMEM_BYTES``; beyond, the buffers in HBM, all
+#: blocks' within ``RS_SLOT_BYTES`` so that they stay in the 50 MB L2.
+#: The sweeps at 1 GiB per rank, n = 8, on an NVIDIA H100 (PERF.md,
+#: tools/quant_hop_check.py), the kernel built for 4 blocks of 256 threads
+#: a SM: in shared memory 16-row segments with 256 threads x 4 blocks a SM
+#: 8.02-8.03 ms, 128 x 8 with 7 rows 8.57, 128 x 12 with 4 rows 8.51, 256
+#: x 6 with 10 rows 10.5, 256 x 3 with 16 rows 9.7; the first build's 128
+#: x 4 with 16 rows 12.4. In L2 256 x 4 with 8 rows 10.1, with 13 rows
+#: 11.3, x 3 11.4, x 2 14.2; at n = 12 (about 1 GiB per rank) x 4 with 8
+#: rows 16.4, x 3 22.7, x 2 23.4.
+QUANT_CLUSTER_SEG_ROWS, QUANT_CLUSTER_THREADS, \
+    QUANT_CLUSTER_BLOCKS_PER_SM = 16, 256, 4
+QUANT_SEG_ROWS, QUANT_THREADS, QUANT_BLOCKS_PER_SM = 8, 256, 4
 
 
-def _slot_elems(sw: int) -> int:
-    """f32 words of one comm slot of a stripe ``sw`` elements wide:
-    its rows (rounded up to 4, so every slot starts 16-byte aligned) of
-    128 int8 values (32 words) and one f32 scale each."""
-    rows = -(-sw // LANES)
-    return (-(-rows // 4) * 4) * (LANES // 4 + 1)
+def _buf_bytes(seg_rows: int) -> int:
+    """Bytes of one wavefront buffer: ``seg_rows`` int8 rows of 128
+    values, then their f32 scales, rounded up to 16 bytes."""
+    return seg_rows * LANES + -(-seg_rows * 4 // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)
+def _quant_plan(n: int, rows: int, sm_count: int,
+                cluster: Optional[bool] = None,
+                seg_rows: Optional[int] = None,
+                threads: Optional[int] = None,
+                per_sm: Optional[int] = None
+                ) -> tuple[int, int, int, bool]:
+    """``_wave_plan`` of ``quant_allreduce`` in rows: (stripes, threads
+    per block, rows per segment, cluster) for n ranks of ring blocks of
+    ``rows`` rows, each form's segment, threads and blocks per SM (or the
+    ones given: the measurement tools' sweep); stripes of at least a row
+    per warp (so a small message spreads over more blocks, each warp on
+    fewer rows a step); (2n-3) x RS_BUFS buffers a block of at most
+    ``_buf_bytes``' 132 bytes a row plus 12, within its share of
+    ``CHUNKED_SMEM_BYTES`` in the cluster form."""
+    return _wave_plan(n, rows, sm_count, cluster, (
+        (seg_rows or QUANT_CLUSTER_SEG_ROWS, threads or QUANT_CLUSTER_THREADS,
+         per_sm or QUANT_CLUSTER_BLOCKS_PER_SM),
+        (seg_rows or QUANT_SEG_ROWS, threads or QUANT_THREADS,
+         per_sm or QUANT_BLOCKS_PER_SM)),
+        bufs=2 * n - 3,
+        smem=CHUNKED_SMEM_BYTES // (per_sm or QUANT_CLUSTER_BLOCKS_PER_SM),
+        quantum=1, unit_bytes=LANES + 4, slack=12, per_warp=True)
 
 
 def quant_allreduce(blocks: torch.Tensor) -> torch.Tensor:
@@ -461,14 +627,48 @@ def quant_allreduce(blocks: torch.Tensor) -> torch.Tensor:
     (n, n, rows, 128): every rank's every block holds the quantized-wire
     sum of that block over all ranks. The kernel for a CUDA tensor, the
     plain version for a CPU one."""
-    n, rows = _quant_blocks(blocks)
+    _quant_blocks(blocks)
     if not blocks.is_cuda:
         return quant_allreduce_plain(blocks)
-    if blocks.data_ptr() % 16:  # the kernel loads rows as 16-byte vectors
-        blocks = blocks.clone()
-    return _launch("quant_allreduce", QUANT, blocks, blocks.shape,
-                   rows * LANES, 2 * n, QUANT_NSEM, (rows,), (),
-                   slot_elems=_slot_elems)
+    return _quant_launch(blocks)
+
+
+def _quant_launch(blocks: torch.Tensor, cluster: Optional[bool] = None,
+                  seg_rows: Optional[int] = None,
+                  threads: Optional[int] = None,
+                  per_sm: Optional[int] = None) -> torch.Tensor:
+    """Launch csrc/quant_allreduce.cu on (n, n, rows, 128) CUDA blocks
+    with the plan's stripes, threads, segment and buffer memory (a
+    cluster's shared memory, or L2), or the ones given (the tests' and
+    the measurement tools' choices). ``QUANT.last_plan`` records what was
+    launched."""
+    n, rows = _quant_blocks(blocks)
+    cap = require_kernel_device(blocks)
+    x = blocks.contiguous()
+    if x.data_ptr() % 16:  # the kernel loads rows as 16-byte vectors
+        x = x.clone()
+    stripes, threads, seg, cluster = _quant_plan(
+        n, rows, cap.sm_count, cluster, seg_rows, threads, per_sm)
+    dev = x.device.index or 0
+    if cluster:  # the segment in 16-byte units is its rows
+        stripes = min(stripes, _clusters("quant_allreduce", n, threads,
+                                          16 * seg, dev))
+    n_segs = -(-(-(-rows // stripes)) // seg)
+    out = torch.empty_like(x)
+    stream = _raw_stream(x)
+    buffer_bytes = n * stripes * RS_BUFS * (2 * n - 3) * _buf_bytes(seg)
+    comm = _scratch(x, stream, "comm", 0 if cluster else buffer_bytes)
+    sems = _scratch(x, stream, "flags", n * stripes * 2 * RS_BUFS)
+    err = _entry("quant_allreduce")(
+        x.data_ptr(), out.data_ptr(), comm.data_ptr(), sems.data_ptr(), n,
+        stripes, threads, rows, seg, n_segs, int(cluster), dev, stream)
+    if err:
+        raise KernelError(f"quant_allreduce launch failed: CUDA error {err}")
+    QUANT.launched(sems, {
+        "form": "cluster" if cluster else "l2", "stripes": stripes,
+        "threads": threads, "segment_rows": seg, "segments": n_segs,
+        "buffer_bytes": buffer_bytes})
+    return out
 
 
 def allreduce_block_quant(b: torch.Tensor, op: Any = "sum", *,

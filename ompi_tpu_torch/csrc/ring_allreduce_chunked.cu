@@ -73,12 +73,6 @@ constexpr int kChClusterRanks = 8;
 // Buffers per forwarded step of each (rank, stripe): one for each parity
 // of t.
 constexpr int kChBufs = 2;
-// Whether time slot p has a pass that forwards into the right
-// neighbour's buffers: a step k in 0 .. 2n-4 whose segment p - k is in
-// 0 .. n_segs-1 (pallas_ring._ch_forwards).
-__device__ __forceinline__ bool ch_forwards(int p, int n, int n_segs) {
-  return p >= 0 && p - n_segs + 1 <= 2 * n - 4;
-}
 
 // The kernel's flags and buffers: in comm and sems (HBM, through L2),
 // or, with CLUSTER, in the shared memory of the rank that reads them.

@@ -268,6 +268,13 @@ __device__ __forceinline__ void acquire_local(unsigned a) {
                : "r"(a), "r"(0xffffffffu)
                : "memory");
 }
+// The same for a 32-bit word.
+__device__ __forceinline__ void st_peer(unsigned a, unsigned v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;"
+               :
+               : "r"(a), "r"(v)
+               : "memory");
+}
 // Whole block, every block of the cluster: a barrier whose arrival
 // releases and whose wait acquires.
 __device__ __forceinline__ void cluster_sync() {
@@ -348,6 +355,77 @@ inline int max_clusters(const void* fn, int size, int threads, size_t smem,
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
   return err == cudaSuccess ? clusters : -(int)err;
+}
+
+// ---- the wavefront rings (ring_allreduce_chunked, quant_allreduce) ----------
+
+// Whether time slot p of a 2(n-1)-step wavefront over n_segs segments
+// has a pass that forwards into the right neighbour's buffers: a step k
+// in 0 .. 2n-4 whose segment p - k is in 0 .. n_segs-1
+// (pallas_ring._ch_forwards).
+__device__ __forceinline__ bool ch_forwards(int p, int n, int n_segs) {
+  return p >= 0 && p - n_segs + 1 <= 2 * n - 4;
+}
+
+// ---- bulk (TMA) copies completing on mbarriers (selfdma_chunked,
+// ppermute_shift): one thread issues them; a copy into shared memory
+// needs a cluster launch (else CUDA error 715). ----------------------------
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+               : "memory");
+}
+// The issuing thread's arrival, expecting `bytes` of bulk copies.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of the given parity to complete; trap after 30 s.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned long long t0 = 0;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0)
+      t0 = global_ns();
+    else if (global_ns() - t0 > kDeadlockNs)
+      __trap();
+  }
+}
+__device__ __forceinline__ void bulk_in(unsigned dst, const char* src,
+                                        unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// Shared memory to the block's own shared memory by its shared::cluster
+// address: the self-targeted copy.
+__device__ __forceinline__ void bulk_self(unsigned dst, unsigned src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_out(char* dst, unsigned src,
+                                         unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n\t"
+      "cp.async.bulk.commit_group;" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
 }
 
 // ---- 16-byte vectors -------------------------------------------------------

@@ -45,63 +45,6 @@ constexpr int kSelfdmaThreads = 32;
 // (in[2], mid[2]), padded.
 constexpr int kSelfdmaHeader = 128;
 
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
-               : "memory");
-}
-// The issuing thread's arrival, expecting `bytes` of bulk copies.
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-// Wait for the phase of the given parity to complete; trap after 30 s.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned long long t0 = 0;
-  for (;;) {
-    unsigned done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0)
-      t0 = global_ns();
-    else if (global_ns() - t0 > kDeadlockNs)
-      __trap();
-  }
-}
-__device__ __forceinline__ void bulk_in(unsigned dst, const char* src,
-                                        unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-// Shared memory to the block's own shared memory by its shared::cluster
-// address: the self-targeted copy.
-__device__ __forceinline__ void bulk_self(unsigned dst, unsigned src,
-                                          unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
-      "bytes [%0], [%1], %2, [%3];" ::"r"(dst),
-      "r"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_out(char* dst, unsigned src,
-                                         unsigned bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n\t"
-      "cp.async.bulk.commit_group;" ::"l"(dst),
-      "r"(src), "r"(bytes)
-      : "memory");
-}
-
 // Probe builds (-DOMPI_RING_PROBE): add the ns a wait took to `total`.
 #ifdef OMPI_RING_PROBE
 #define PROBE_WAIT(total, wait)                          \

@@ -30,12 +30,19 @@ events, after two warm-ups) of, at n = 8:
   ``ring_allgather`` at 128 MiB and 512 B sent per rank (1 GiB and 4 KiB
   received), ``ring_alltoall`` at 1 GiB sent per rank, ``linear_gather``
   at 1 GiB per rank (root 3) and ``x.clone()`` of its input beside it,
-  ``quant_allreduce`` at 1 GiB per rank
-  (float32 SUM), ``allreduce_block_rsag`` (the reduce-scatter, then the
+  ``quant_allreduce`` at 1 GiB and 64 KiB per rank and at n = 12 (about
+  1 GiB per rank; float32 SUM), ``allreduce_block_rsag`` (the reduce-scatter, then the
   allgather) at 1 GiB per rank (float32 SUM, 5 launches);
-- ``ppermute_shift`` at 8 MiB per rank (bfloat16, shift 1) and
-  ``ring_attention_block`` at 32 heads of 128, T = 512 per rank,
-  bfloat16, causal.
+- ``ppermute_shift`` at 8 MiB and 4 KiB per rank (bfloat16, shift 1),
+  also its device time from ``torch.profiler`` (``*_device_ms``) beside
+  that of ``x.clone()``'s memcpy of the same 8 MiB a rank,
+  ``ring_alltoall`` at 4 KiB sent per rank and ``ring_attention_block``
+  at 32 heads of 128, T = 512 per rank, bfloat16, causal.
+
+Where a wrapper records the plan of its last launch
+(``KernelCounter.last_plan``), the 1 GiB quant ring's and the 8 MiB
+hop's are printed beside their times (``*_plan``; null where the
+checkout's wrapper records none).
 """
 
 import json
@@ -49,6 +56,7 @@ import torch.nn.functional as F
 from ompi_tpu_torch.coll import pallas_ring as pr
 from ompi_tpu_torch.coll import sched as sched_mod
 from ompi_tpu_torch.coll.sched import pallas_lower as pl
+from ompi_tpu_torch.tools.ring_probe import profile
 
 N, KIB, MIB, GIB = 8, 1 << 10, 1 << 20, 1 << 30
 
@@ -146,6 +154,7 @@ def main() -> int:
     qblocks = F.pad(x, (0, (-x.shape[1]) % quantum)).reshape(N, N, -1, 128)
     out["quant_allreduce_1GiB_ms"] = p50(
         lambda: quant.quant_allreduce(qblocks))
+    out["quant_allreduce_plan"] = quant.QUANT.last_plan
     del qblocks, inp
     one = x[:1].contiguous()
     rows_, seg_rows = pr._chunked_layout(GIB // 4, 1, torch.float32, MIB)
@@ -169,7 +178,26 @@ def main() -> int:
     hop = torch.randn((N, 4 * MIB), generator=gen, device="cuda").to(
         torch.bfloat16)
     out["ppermute_shift_8MiB_ms"] = p50(lambda: pr.ppermute_shift(hop, 1))
+    out["ppermute_shift_plan"] = pr.PPERMUTE.last_plan
+    out["ppermute_shift_8MiB_device_ms"] = profile(
+        lambda: pr.ppermute_shift(hop, 1), "ppermute_shift").get(
+            "kernel device")
+    out["clone_8MiB_device_ms"] = profile(
+        lambda: hop.clone(), "no such kernel").get(
+        "Memcpy DtoD (Device -> Device) device")
+    hop = hop[:, :2 * KIB].contiguous()
+    out["ppermute_shift_4KiB_ms"] = p50(lambda: pr.ppermute_shift(hop, 1))
+    out["ppermute_shift_4KiB_device_ms"] = profile(
+        lambda: pr.ppermute_shift(hop, 1), "ppermute_shift").get(
+            "kernel device")
     del hop
+    qsmall = F.pad(torch.randn((N, 16 * KIB), generator=gen, device="cuda"),
+                   (0, N * 128 * 128 - 16 * KIB)).reshape(N, N, -1, 128)
+    out["quant_allreduce_64KiB_ms"] = p50(
+        lambda: quant.quant_allreduce(qsmall))
+    a2a = torch.randn((N, N, KIB // N), generator=gen, device="cuda")
+    out["ring_alltoall_4KiB_ms"] = p50(lambda: pr.ring_alltoall(a2a))
+    del qsmall, a2a
     from ompi_tpu_torch.coll import pallas_attn as pa
 
     q, k, v = (torch.randn((N, 512, 32, 128), generator=gen,
@@ -184,6 +212,15 @@ def main() -> int:
     out["linear_scatter_1GiB_ms"] = p50(lambda: pr.linear_scatter(rows, 5))
     out["scatter_clone_1GiB_first_ms"] = clone_first
     out["scatter_clone_1GiB_ms"] = p50(lambda: rows.clone())
+    del rows
+    torch.cuda.empty_cache()
+    n, quantum = 12, 12 * 128 * 128
+    x = torch.randn((n, GIB // 4 // quantum * quantum), generator=gen,
+                    device="cuda")
+    qblocks = x.reshape(n, n, -1, 128)
+    out["quant_allreduce_n12_ms"] = p50(
+        lambda: quant.quant_allreduce(qblocks), 10)
+    out["quant_allreduce_n12_plan"] = quant.QUANT.last_plan
     print(json.dumps(out), flush=True)
     return 0
 

@@ -314,7 +314,9 @@ def test_rd_forms_match_plain_on_card(cuda, n, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["ring", "tree", "bcast", "rs", "rs-l2",
                                     "ag", "ag-l2", "chunked", "chunked-l2",
-                                    "scatter", "gather", "rd", "rd-l2"])
+                                    "scatter", "gather", "rd", "rd-l2",
+                                    "quant", "quant-l2", "hop", "hop-flags",
+                                    "alltoall"])
 def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
                                                                 kernel):
     """50 back-to-back launches at n = 8 give the same bits, every flag
@@ -348,6 +350,18 @@ def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
         cluster = None if kernel == "rd" else False
         run, counter = (lambda: pr._rd_launch(x, "sum", cluster=cluster)), \
             pr.RD
+    elif kernel.startswith("quant"):  # in shared memory, or in L2
+        x = _input(8, 8 * 256 * 128, "float32", cuda).reshape(8, 8, 256, 128)
+        cluster = None if kernel == "quant" else False
+        run, counter = (lambda: quant._quant_launch(x, cluster, 4)), \
+            quant.QUANT
+    elif kernel.startswith("hop"):  # a cluster's barrier, or flags
+        x = _input(8, 3 * 4096 + 64, "float32", cuda)
+        cluster = None if kernel == "hop" else False
+        run, counter = (lambda: pr._hop_launch(x, 3, cluster)), pr.PPERMUTE
+    elif kernel == "alltoall":
+        x = _input(8, 8 * 5000, "float32", cuda).reshape(8, 8, 5000)
+        run, counter = (lambda: pr.ring_alltoall(x)), pr.ALLTOALL
     elif kernel.startswith("ag"):  # its buffers in shared memory, or L2
         x = _input(8, 40 * pr.AG_SEG_BYTES // 4 + 77, "float32", cuda)
         cluster = kernel == "ag"
@@ -545,24 +559,53 @@ def test_selfdma_bulk_pipeline_at_several_plans(cuda):
 
 
 # Rows per ring block for the quant kernel: rows % 128 == 0, and at n = 2
-# and n = 3 a count whose stripes (min(132 // n, rows / 32) of them) do
-# not divide it.
-QUANT_ROWS = {2: (128, 384, 2176), 3: (128, 1536), 8: (128, 1152)}
+# and n = 3 a count whose stripes do not divide it.
+QUANT_ROWS = {2: (128, 384, 2176), 3: (128, 1536), 8: (128, 1152),
+              12: (128, 384)}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("n", [2, 3, 8, 12])
 def test_quant_allreduce_matches_plain_on_card(cuda, n, dtype):
+    """The plan's form (a cluster's shared memory up to 8 ranks, L2
+    beyond), the L2 form forced, and one-row segments (more segments than
+    steps), bitwise the plain version with every flag at 0."""
+    forms = [(None, None), (None, 1)]
+    if n <= pr.RS_CLUSTER_RANKS:
+        forms.append((False, None))
     for rows in QUANT_ROWS[n]:
         x = _input(n, n * rows * 128 - 333, dtype, cuda)  # ragged: padded
         got = _launched_once(quant.QUANT,
                              lambda: quant.allreduce_block_quant(x, "sum"))
+        assert quant.QUANT.last_plan["form"] == (
+            "cluster" if n <= pr.RS_CLUSTER_RANKS else "l2")
         want = quant.allreduce_block_quant(
             x, "sum", quant=quant.quant_allreduce_plain)
         assert got.dtype == x.dtype and got.shape == x.shape
         assert torch.equal(_bits(got), _bits(want)), (n, dtype, rows)
         assert torch.equal(got, got[:1].expand_as(got))  # ranks agree
+        for cluster, seg in forms:
+            got = _launched_once(quant.QUANT, lambda: quant.allreduce_block_quant(
+                x, "sum", quant=lambda b: quant._quant_launch(b, cluster,
+                                                              seg)))
+            assert torch.equal(_bits(got), _bits(want)), (rows, cluster, seg)
+
+
+@pytest.mark.gpu
+def test_quant_allreduce_on_ties_matches_plain_on_card(cuda):
+    """Values whose quotients by their row's scale fall on ties
+    (multiples of 0.5): the kernel's reciprocal path must give way to
+    the division there."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for n in (3, 8):
+        x = torch.randint(-254, 255, (n, n * 128 * 128), generator=gen,
+                          device=cuda).float() * 0.5
+        got = _launched_once(quant.QUANT,
+                             lambda: quant.allreduce_block_quant(x, "sum"))
+        want = quant.allreduce_block_quant(
+            x, "sum", quant=quant.quant_allreduce_plain)
+        assert torch.equal(got, want), n
 
 
 @pytest.mark.gpu
@@ -586,13 +629,31 @@ def test_quant_allreduce_refuses_what_it_does_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8",
                                    "float64"])
-@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("n", [2, 3, 8, 12])
 def test_ppermute_shift_matches_plain_on_card(cuda, n, dtype):
-    x = _input(n, 13 * 9, "int32", cuda).to(getattr(torch, dtype))
-    for shift in (1, -1, 3):
-        got = _launched_once(pr.PPERMUTE, lambda: pr.ppermute_shift(x, shift))
-        assert torch.equal(got, pr.ppermute_shift_plain(x, shift))
-        assert torch.equal(got, torch.roll(x, shift, 0))
+    """The plan's form (a cluster's barrier up to 8 ranks, flags beyond),
+    in the cluster form both the bulk copies (rows of whole 16-byte
+    vectors) and the threads' copy, and the flags form forced: bitwise the
+    plain version with every flag at 0."""
+    for elems in (13 * 9, 4096 + 64):
+        x = _input(n, elems, "int32", cuda).to(getattr(torch, dtype))
+        forms = [(None, None)]
+        if n <= pr.RS_CLUSTER_RANKS:
+            forms += [(True, 0), (False, None)]
+        for shift in (1, -1, 3):
+            want = pr.ppermute_shift_plain(x, shift)
+            assert torch.equal(want, torch.roll(x, shift, 0))
+            got = _launched_once(pr.PPERMUTE,
+                                 lambda: pr.ppermute_shift(x, shift))
+            assert torch.equal(got, want)
+            for cluster, piece in forms:
+                got = _launched_once(pr.PPERMUTE, lambda: pr._hop_launch(
+                    x, shift % n, cluster, piece=piece))
+                plan = pr.PPERMUTE.last_plan
+                assert plan["form"] == ("flags" if cluster is False
+                                        or n > pr.RS_CLUSTER_RANKS
+                                        else "cluster")
+                assert torch.equal(got, want), (elems, shift, plan)
     one = x[:1]
     before = pr.PPERMUTE.launches
     assert pr.ppermute_shift(one, 1) is one  # n == 1: no launch
