@@ -98,12 +98,13 @@ Phases (any failure raises and exits non-zero):
    two vtable routes: a ``world.dup()`` with
    ``coll_pallas_priority=100`` (PallasColl) and one with TunedColl and
    ``coll_tuned_<op>_algorithm`` forcing each kernel's name. It runs as
-   eight paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
+   nine paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
    bidirectional ring; alltoall/gather/scatter; the schedule compiler;
-   the quantized wire; ring attention; the ring hop);
+   the quantized wire; ring attention; the ring hop; the surface);
    the launch counters are zeroed just before each path and read just
    after it, every kernel of the path must have launched there, and
-   every result must equal its plain version.
+   every result must equal its plain version (the kernels line sums a
+   kernel's launches over the paths).
    - ``comm.allreduce(x, "sum")``, float32, at 4 KiB (recursive
      doubling), 1 MiB (ring) and 1 GiB (chunked, an 8 GiB rank-major
      buffer) per rank; then TunedColl's default route at 4096 B or less
@@ -178,6 +179,31 @@ Phases (any failure raises and exits non-zero):
      rank, every shift, bitwise ``torch.roll``. The JAX package calls it
      only from tests and ring attention fuses its own hop, so this phase
      is its only main-path use.
+   - the surface, on both routes: ``comm.scan`` and ``comm.exscan``
+     (TunedColl's on both) with every algorithm forced and the default
+     decision, sum/prod/max/min, float32/bfloat16/int32, at 1 MiB and
+     4004 B per rank, each bitwise the same spmd function on a CPU copy
+     of the input; allgatherv, gatherv, scatterv, alltoallv, alltoallw,
+     reduce_scatter (int32) on ragged counts and the neighbor
+     collectives on a periodic 2 x 4 cart and a periodic ring of two
+     ranks (duplicate edges), each equal to a numpy oracle; every
+     collective ``*_init`` at 1 MiB per rank on PallasColl, started
+     twice, bitwise the blocking call, the operation's kernel +1 launch
+     per start and no other (none for the eleven without a kernel);
+     ``barrier`` and ``barrier_init`` on both, completing on CUDA
+     events; ``allreduce_init`` at 1 GiB per rank on PallasColl (the
+     chunked ring) started twice (the second waited with
+     ``timeout=60``), rebound and started again, each bitwise the
+     blocking call with ``ring_allreduce_chunked`` +1 per start; scan
+     and exscan (native) at 1 GiB per rank on TunedColl, float32 SUM,
+     column windows bitwise the CPU, within 1e-5 of sum |x| of a float64
+     cumsum, temporaries under 40 GB; then a short IMB sweep
+     (``ompi_tpu_torch.tools.imb.sweep``, every op, 4 B to 4 MiB, three
+     iterations) on each route, one ``imb_short`` JSON line each. The
+     one-rank communicator of the schedule compiler's path is made with
+     ``coll_self_priority`` at 70, below tuned's 80, so that TunedColl
+     and not SelfColl serves it and the forced name reaches the one-rank
+     kernel.
    Each case frees its input, output and plain result before the next;
    ``max_memory_allocated`` is printed for each path and for the whole
    main path.
@@ -1307,14 +1333,24 @@ def sched_path(world, tcomm, pr, config, counters, gen) -> dict:
         torch.cuda.empty_cache()
 
     # The one-rank kernel: a forced name runs on a one-rank communicator.
+    # SelfColl (priority 100) takes every one-rank communicator; below
+    # tuned's 80 it leaves this one to TunedColl and its forced name.
+    config.VARS.set("coll_self_priority", 70)
     solo = world.split([0] + [-1] * (N - 1))[0]
+    config.VARS.set("coll_self_priority", 100)
+    if solo._coll["allreduce"][0].NAME != "tuned":
+        raise AssertionError("one-rank communicator not on TunedColl")
     x = random_rank_major((1, GIB // 4), torch.float32, gen)
     config.VARS.set(force, "pallas_ring_chunked")
+    before = counters.KERNELS["selfdma_chunked"].launches
     t0 = time.time()
     out = solo.allreduce(x, "sum")
     torch.cuda.synchronize()
     dt = time.time() - t0
     config.VARS.set(force, "")
+    if counters.KERNELS["selfdma_chunked"].launches != before + 1:
+        raise AssertionError("one-rank pallas_ring_chunked: the kernel did "
+                             "not launch")
     if out.data_ptr() == x.data_ptr() or not torch.equal(out, x):
         raise AssertionError("one-rank pallas_ring_chunked: not a copy of "
                              "its input")
@@ -1904,6 +1940,402 @@ def hop_path(counters, gen) -> dict:
     return {}
 
 
+# The surface path: each PallasColl operation's kernel at 1 MiB per rank
+# (1 MiB sent for the alltoall and the reduce-scatter).
+PCOMM_KERNELS = {
+    "allreduce": "ring_allreduce", "bcast": "tree_bcast",
+    "reduce": "tree_reduce", "allgather": "ring_allgather",
+    "reduce_scatter_block": "ring_reduce_scatter",
+    "alltoall": "ring_alltoall", "gather": "linear_gather",
+    "scatter": "linear_scatter",
+}
+SURFACE_KERNELS = tuple(PCOMM_KERNELS.values()) + ("ring_allreduce_chunked",)
+PREFIX_ALGOS = ("native", "recursive_doubling", "linear_chain", "")
+PREFIX_SIZES = (MIB, 4004)  # bytes per rank: 1 MiB, then ragged
+SCAN_TEMP_LIMIT = 40e9  # bytes of temporaries of the 1 GiB scan
+IMB_SHORT = (4, 4 * MIB, 3)  # min bytes, max bytes, iterations
+PERSIST_TIMED = 10  # timed 1 GiB allreduces each, blocking and persistent
+
+
+def surface_inputs(opname, gen):
+    """(input, extra args) of one collective at 1 MiB per rank on the
+    card (1 MiB sent for the alltoall and the reduce-scatter)."""
+    import torch
+
+    row = MIB // 4
+    shape = (N, N, row // N) if opname in ("alltoall",
+                                           "reduce_scatter_block") \
+        else (N, row)
+    x = random_rank_major(shape, torch.float32, gen)
+    args = {"allreduce": ("sum",), "bcast": (BCAST_ROOT,),
+            "reduce": ("max", REDUCE_ROOT), "allgather": (),
+            "reduce_scatter_block": ("sum",), "alltoall": (),
+            "gather": (GATHER_ROOT,), "scatter": (SCATTER_ROOT,)}[opname]
+    return x, args
+
+
+def ragged_inputs(gen):
+    """Ragged blocks of the v-variants, as CUDA tensors: per-rank rows of
+    ``(r * 2 + 1) % 4`` (some empty), ``blocks[s][d]`` of ``(s + d) % 3``
+    rows, an int32 reduce-scatter over counts ``(r + 1) % 3``."""
+    import torch
+
+    cols = 1000
+    vals = [random_rank_major(((r * 2 + 1) % 4 * 64, cols), torch.float32,
+                              gen) for r in range(N)]
+    blocks = [[random_rank_major(((s + d) % 3 * 32, cols), torch.float32,
+                                 gen) for d in range(N)] for s in range(N)]
+    wblocks = [[random_rank_major((1, s + 1), torch.int32 if (s + d) % 2
+                                  else torch.float32, gen)
+                for d in range(N)] for s in range(N)]
+    counts = [(r + 1) % 3 * 50 for r in range(N)]
+    rs_vals = [random_rank_major((sum(counts), cols), torch.int32, gen)
+               for _ in range(N)]
+    return vals, blocks, wblocks, counts, rs_vals
+
+
+def same(got, want, what: str) -> None:
+    """got equals want exactly: tensors bit for bit, lists and dicts leaf
+    by leaf; raises otherwise."""
+    import torch
+
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{what}: keys {sorted(got)}")
+        for k in want:
+            same(got[k], want[k], f"{what}[{k}]")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same(g, w, f"{what}[{i}]")
+    elif want is None:
+        if got is not None:
+            raise AssertionError(f"{what}: not None")
+    else:
+        g = got.cpu() if got.is_cuda else got
+        w = want.cpu() if want.is_cuda else want
+        if g.shape != w.shape or g.dtype != w.dtype or \
+                not torch.equal(bits(g), bits(w)):
+            raise AssertionError(f"{what}: differs (max err "
+                                 f"{max_abs_err(g.float(), w.float())})")
+
+
+def prefix_checks(comm, route, tuned, config, gen) -> int:
+    """Scan and exscan through ``comm``: every algorithm forced and the
+    default decision, sum/prod/max/min, float32/bfloat16/int32, at 1 MiB
+    and a ragged size per rank, each bitwise the same spmd function run
+    on a CPU copy of the input. Returns the number of cases."""
+    import torch
+
+    cases = 0
+    for which in ("scan", "exscan"):
+        algos = tuned.SCAN_ALGOS if which == "scan" else tuned.EXSCAN_ALGOS
+        decide = tuned.decide_scan if which == "scan" else \
+            tuned.decide_exscan
+        var = f"coll_tuned_{which}_algorithm"
+        for algo in PREFIX_ALGOS:
+            config.VARS.set(var, algo)
+            for dtype in (torch.float32, torch.bfloat16, torch.int32):
+                for nbytes in PREFIX_SIZES:
+                    x = random_rank_major((N, nbytes // 4), dtype, gen)
+                    xc = x.cpu()
+                    for op in ("sum", "prod", "max", "min"):
+                        out = getattr(comm, which)(x, op)
+                        name = decide(tuned.op_lookup(op),
+                                      nbytes // 4 * x.element_size(), N)
+                        want = algos[name](xc, tuned.op_lookup(op))
+                        same(out, want, f"{route} {which}[{algo or 'default'}"
+                             f"->{name}] {op} {dtype} {nbytes} B/rank")
+                        cases += 1
+            config.VARS.set(var, "")
+    return cases
+
+
+def ragged_checks(comm, route, ttopo, gen) -> None:
+    """The v-variants, reduce_scatter and the neighbor collectives
+    through ``comm``, each equal to a numpy oracle."""
+    import numpy as np
+    import torch
+
+    vals, blocks, wblocks, counts, rs_vals = ragged_inputs(gen)
+    hv = [v.cpu().numpy() for v in vals]
+    cat = np.concatenate(hv, 0)
+    same(comm.allgatherv(vals), torch.from_numpy(cat), f"{route} allgatherv")
+    same(comm.gatherv(vals, root=N - 1), torch.from_numpy(cat),
+         f"{route} gatherv")
+    same(comm.scatterv(vals, root=0), [torch.from_numpy(v) for v in hv],
+         f"{route} scatterv")
+    hb = [[b.cpu().numpy() for b in row] for row in blocks]
+    same(comm.alltoallv(blocks),
+         [torch.from_numpy(np.concatenate([hb[s][d] for s in range(N)], 0))
+          for d in range(N)], f"{route} alltoallv")
+    same(comm.alltoallw(wblocks),
+         [[wblocks[s][d] for s in range(N)] for d in range(N)],
+         f"{route} alltoallw")
+    hr = np.stack([v.cpu().numpy() for v in rs_vals]).sum(0, dtype=np.int32)
+    starts = np.cumsum([0] + counts)
+    same(comm.reduce_scatter(rs_vals, counts, "sum"),
+         [torch.from_numpy(hr[starts[r]:starts[r + 1]]) for r in range(N)],
+         f"{route} reduce_scatter")
+    # neighbors: a periodic 2 x 4 cart, and a periodic ring of two ranks
+    # (each lists the other twice: duplicate edges, paired in order)
+    two = comm.split([0, 0] + [-1] * (N - 2))[0]
+    for cart in (ttopo.cart_create(comm, [2, 4], [True, True]),
+                 ttopo.cart_create(two, [2], [True])):
+        n = cart.size
+        x = random_rank_major((n, 4096), torch.float32, gen)
+        hx = x.cpu().numpy()
+        nb = [cart.topo.neighbors(r) for r in range(n)]
+        same(cart.neighbor_allgather(x),
+             {r: torch.from_numpy(hx[nb[r]]) for r in range(n)},
+             f"{route} neighbor_allgather {cart.topo.dims}")
+        send = {r: random_rank_major((len(nb[r]), 512), torch.float32, gen)
+                for r in range(n)}
+        want = {}
+        for r in range(n):
+            got, used = [], {}
+            for src in nb[r]:
+                # the k-th time r lists src pairs with the k-th time src
+                # lists r among its out-neighbors
+                k = used.get(src, 0)
+                used[src] = k + 1
+                pos = [j for j, d in enumerate(nb[src]) if d == r][k]
+                got.append(send[src][pos].cpu().numpy())
+            want[r] = torch.from_numpy(np.stack(got))
+        same(cart.neighbor_alltoall(send), want,
+             f"{route} neighbor_alltoall {cart.topo.dims}")
+    log(f"[main] {route}: allgatherv, gatherv, scatterv, alltoallv, "
+        f"alltoallw, reduce_scatter and the neighbor collectives on a "
+        f"periodic 2 x 4 cart and a periodic ring of 2 equal to numpy")
+
+
+def persistent_checks(pcomm, tcomm, counters, gen) -> None:
+    """Every collective ``*_init`` at 1 MiB per rank on PallasColl,
+    started twice: bitwise the blocking call, each started kernel's
+    launches +1 per start and no other kernel's; then barrier and
+    barrier_init on both routes."""
+    import torch
+    from ompi_tpu_torch.topo import topology as ttopo
+
+    def one_start(preq, kernel, what):
+        before = counters.launches()
+        preq.start()
+        # Inputs on the card: the request completes on its CUDA event.
+        if preq._event is None:
+            raise AssertionError(f"{what}: no completion event")
+        preq.wait()
+        after = counters.launches()
+        grew = {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)}
+        if grew != ({kernel: 1} if kernel else {}):
+            raise AssertionError(f"{what}: launches grew by {grew}")
+        return preq.result()
+
+    for opname, kernel in PCOMM_KERNELS.items():
+        x, args = surface_inputs(opname, gen)
+        preq = getattr(pcomm, f"{opname}_init")(x, *args)
+        for start in range(2):
+            if start:
+                x, _ = surface_inputs(opname, gen)
+                preq.bind(x)
+            got = one_start(preq, kernel, f"PallasColl {opname}_init")
+            same(got, getattr(pcomm, opname)(x, *args),
+                 f"PallasColl {opname}_init start {start}")
+        log(f"[main] PallasColl {opname}_init at {MIB} B/rank: two starts, "
+            f"{kernel} +1 launch each, bitwise the blocking call")
+        del x, preq, got
+    vals, blocks, wblocks, counts, rs_vals = ragged_inputs(gen)
+    cart = ttopo.cart_create(pcomm, [2, 4], [True, True])
+    cx, _ = surface_inputs("allreduce", gen)
+    sendb = {r: random_rank_major((4, 512), torch.float32, gen)
+             for r in range(N)}
+    kernelless = {
+        "scan": (pcomm, cx, ("sum",)), "exscan": (pcomm, cx, ("prod",)),
+        "allgatherv": (pcomm, vals, ()), "gatherv": (pcomm, vals, (2,)),
+        "scatterv": (pcomm, vals, (1,)), "alltoallv": (pcomm, blocks, ()),
+        "alltoallw": (pcomm, wblocks, ()),
+        "reduce_scatter": (pcomm, rs_vals, (counts, "sum")),
+        "neighbor_allgather": (cart, cx, ()),
+        "neighbor_alltoall": (cart, sendb, ()),
+    }
+    for opname, (comm, x, args) in kernelless.items():
+        preq = getattr(comm, f"{opname}_init")(x, *args)
+        for start in range(2):
+            got = one_start(preq, None, f"PallasColl {opname}_init")
+            same(got, getattr(comm, opname)(x, *args),
+                 f"PallasColl {opname}_init start {start}")
+    log(f"[main] PallasColl {', '.join(kernelless)} _init: two starts "
+        f"each, no kernel launched, bitwise the blocking call")
+    for comm, route in ((pcomm, "PallasColl"), (tcomm, "TunedColl")):
+        before = counters.launches()
+        comm.barrier()
+        preq = comm.barrier_init()
+        for _ in range(2):
+            preq.start()
+            if preq._event is None:
+                raise AssertionError(f"{route} barrier_init: no event")
+            preq.wait()
+        if counters.launches() != before or not preq.done:
+            raise AssertionError(f"{route} barrier: launched a kernel")
+        log(f"[main] {route} barrier and barrier_init (two starts): "
+            f"completed on their CUDA events")
+
+
+def persistent_gib(pcomm, counters, gen) -> None:
+    """The persistent allreduce at 1 GiB per rank on PallasColl (the
+    chunked ring): started twice, rebound once and started again, each
+    result bitwise the blocking call, ``ring_allreduce_chunked`` +1 per
+    start; the second start waited for with a timeout. Then a start and
+    wait timed beside the blocking call by CUDA events, alternating,
+    ``PERSIST_TIMED`` times each (each drops its result, so its memory
+    is reused)."""
+    import torch
+
+    kernel = counters.KERNELS["ring_allreduce_chunked"]
+    x = random_rank_major((N, GIB // 4), torch.float32, gen)
+    want = pcomm.allreduce(x, "sum")
+    preq = pcomm.allreduce_init(x, "sum")
+    times = []
+    for start in range(3):
+        if start == 2:
+            del want
+            y = random_rank_major((N, GIB // 4), torch.float32, gen)
+            preq.bind(y)
+            del x
+            x = y
+            del y
+        before = kernel.launches
+        t0 = time.time()
+        preq.start()
+        if start == 1:
+            preq.wait(timeout=60)
+        else:
+            preq.wait()
+        times.append((time.time() - t0) * 1e3)
+        if preq._event is None:
+            raise AssertionError(f"persistent 1 GiB start {start}: no "
+                                 f"completion event")
+        check_sems(kernel)
+        if kernel.launches != before + 1:
+            raise AssertionError(f"persistent 1 GiB start {start}: "
+                                 f"{kernel.launches - before} launches")
+        if start == 2:
+            want = pcomm.allreduce(x, "sum")
+        if not torch.equal(bits(preq.result()), bits(want)):
+            raise AssertionError(f"persistent 1 GiB start {start}: not the "
+                                 f"blocking call's bits")
+    log(f"[main] PallasColl allreduce_init at {GIB} B/rank x {N} ranks: "
+        f"three starts (rebound before the third; the second waited with "
+        f"timeout=60), ring_allreduce_chunked +1 each, bitwise the "
+        f"blocking call; {', '.join(f'{t:.3f}' for t in times)} ms host "
+        f"wall per start and wait")
+    del want
+    calls = {"blocking": lambda: pcomm.allreduce(x, "sum"),
+             "persistent": lambda: preq.start().wait()}
+    ms = {name: [] for name in calls}
+    for _ in range(PERSIST_TIMED):
+        for name, call in calls.items():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            call()
+            e1.record()
+            e1.synchronize()
+            ms[name].append(e0.elapsed_time(e1))
+    check_sems(kernel)
+    log(f"[main] PallasColl allreduce at {GIB} B/rank x {N} ranks by CUDA "
+        f"events, {PERSIST_TIMED} calls each: " + "; ".join(
+            f"{name} p50 {statistics.median(v):.3f} ms, min {min(v):.3f}"
+            for name, v in ms.items()))
+    del x, preq
+    torch.cuda.empty_cache()
+
+
+def scan_gib(tcomm, tuned, gen) -> None:
+    """Scan and exscan at 1 GiB per rank through TunedColl (native),
+    float32 SUM: column windows bitwise the same spmd function on the
+    CPU, the whole within 1e-5 relative of a float64 cumsum, and the
+    call's temporaries under ``SCAN_TEMP_LIMIT`` bytes."""
+    import torch
+
+    x = random_rank_major((N, GIB // 4), torch.float32, gen)
+    for which in ("scan", "exscan"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = getattr(tcomm, which)(x, "sum")
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        temps = torch.cuda.max_memory_allocated() - base - out.numel() * 4
+        if temps > SCAN_TEMP_LIMIT:
+            raise AssertionError(f"{which} 1 GiB: {temps} B of temporaries")
+        if tuned.decide_scan(tuned.op_lookup("sum"), GIB, N) != "native":
+            raise AssertionError("the 1 GiB scan is not native")
+        fn = tuned.SCAN_ALGOS["native"] if which == "scan" else \
+            tuned.EXSCAN_ALGOS["native"]
+        for lo in (0, GIB // 8 - 1000, GIB // 4 - 4096):
+            cols = slice(lo, lo + 4096)
+            same(out[:, cols], fn(x[:, cols].cpu(), tuned.op_lookup("sum")),
+                 f"TunedColl {which} 1 GiB columns {lo}")
+        worst = 0.0
+        for lo in range(0, GIB // 4, 1 << 24):
+            cols = slice(lo, lo + (1 << 24))
+            ref = torch.cumsum(x[:, cols].double(), 0)
+            if which == "exscan":
+                ref = torch.cat([torch.zeros_like(ref[:1]), ref[:-1]])
+            err = (out[:, cols].double() - ref).abs()
+            scale = x[:, cols].double().abs().cumsum(0)
+            worst = max(worst, float((err / scale.clamp_min(1e-30)).max()))
+            del ref, err, scale
+        if worst > 1e-5 or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{which} 1 GiB: error {worst}")
+        log(f"[main] TunedColl {which} (native) at {GIB} B/rank x {N} "
+            f"ranks: {dt * 1e3:.3f} ms host wall (first call), temporaries "
+            f"{temps} B, columns bitwise the CPU, max error / sum|x| "
+            f"{worst:.3g} against a float64 cumsum")
+        del out
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+
+
+def surface_path(world, pcomm, tcomm, config, counters, gen) -> dict:
+    """The rest of the collective surface on the card: scan and exscan,
+    the ragged and neighbor collectives, every persistent form, barrier,
+    the 1 GiB persistent allreduce, scan and exscan at 1 GiB, and a
+    short IMB sweep on both routes. Raises on any disagreement; the
+    kernels' errors are their checks' (returns no new ones)."""
+    from ompi_tpu_torch.coll import tuned
+    from ompi_tpu_torch.tools import imb
+    from ompi_tpu_torch.topo import topology as ttopo
+
+    for comm, route in ((pcomm, "PallasColl"), (tcomm, "TunedColl")):
+        if comm._coll["scan"][0].NAME != "tuned":
+            raise AssertionError(f"{route}: scan not through TunedColl")
+        t0 = time.time()
+        cases = prefix_checks(comm, route, tuned, config, gen)
+        log(f"[main] {route} scan/exscan: {cases} cases (every algorithm "
+            f"forced and by default, 4 ops, 3 dtypes, {PREFIX_SIZES} "
+            f"B/rank), each bitwise the spmd function on a CPU copy, "
+            f"{time.time() - t0:.1f} s")
+        ragged_checks(comm, route, ttopo, gen)
+    persistent_checks(pcomm, tcomm, counters, gen)
+    persistent_gib(pcomm, counters, gen)
+    scan_gib(tcomm, tuned, gen)
+    lo, hi, iters = IMB_SHORT
+    for comm, route in ((pcomm, "PallasColl"), (tcomm, "TunedColl")):
+        t0 = time.time()
+        rows = imb.sweep(comm, imb.OPS, lo, hi, iters)
+        print(json.dumps({"imb_short": {
+            "route": route, "iters": iters,
+            "rows": [r.__dict__ for r in rows]}}), flush=True)
+        log(f"[main] {route} IMB sweep {lo}-{hi} B, {iters} iterations, "
+            f"{len(rows)} rows, {time.time() - t0:.1f} s")
+    return {}
+
+
 def main_path(tt, pr, config) -> tuple[dict, dict]:
     """Both vtable routes at full size, path by path; returns (kernel ->
     max error, kernel -> launches on its path)."""
@@ -1945,6 +2377,8 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
         (("ring_attention",), lambda: attention_path(config, counters,
                                                      gen)),
         (("ppermute_shift",), lambda: hop_path(counters, gen)),
+        (SURFACE_KERNELS, lambda: surface_path(world, pcomm, tcomm, config,
+                                               counters, gen)),
     )
     errs, launches = {}, {}
     for kernels, drive in paths:
@@ -1956,7 +2390,7 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
         for kernel in kernels:
             if got.get(kernel, 0) < 1:
                 raise AssertionError(f"main path never launched {kernel}")
-            launches[kernel] = got[kernel]
+            launches[kernel] = launches.get(kernel, 0) + got[kernel]
         log(f"[main] launches on this path: "
             f"{ {k: got[k] for k in kernels} }, peak device memory "
             f"{torch.cuda.max_memory_allocated()} bytes")

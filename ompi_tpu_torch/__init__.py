@@ -7,7 +7,11 @@ reference. Its main path is the one ``ompi_tpu`` runs for IMB-MPI1
 ``MPI_Reduce_scatter_block`` and ``MPI_Allgather``: ``init`` →
 ``Communicator`` → coll vtable → the collective, through hand-written
 CUDA counterparts of the Pallas ring and tree kernels
-(``coll/pallas_ring.py``, sources in ``csrc/``).
+(``coll/pallas_ring.py``, sources in ``csrc/``). The rest of the
+collective surface (scan, exscan, barrier, the ragged and neighborhood
+variants, the persistent ``*_init`` forms completing on CUDA events)
+runs through the same vtable, and ``tools/imb.py`` sweeps it in
+IMB-MPI1 style.
 
 Rules of the port:
 

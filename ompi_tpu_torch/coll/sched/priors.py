@@ -1,6 +1,6 @@
 """Cold-start priors: the static algorithm tables (port of
-``ompi_tpu/coll/sched/priors.py``: allreduce, alltoall, bcast, reduce,
-allgather, reduce_scatter, gather and scatter).
+``ompi_tpu/coll/sched/priors.py``: allreduce, alltoall, bcast, scan,
+exscan, reduce, allgather, reduce_scatter, gather and scatter).
 
 The reference's fixed decision rules (coll_tuned_decision_fixed.c),
 demoted to the cold-start prior that ``coll/tuned`` consults only when
@@ -86,6 +86,23 @@ def prior_bcast(nbytes: int, nranks: int) -> str:
     if nbytes < t._large.value:
         return "binary"
     return "pipelined"
+
+
+def prior_scan(op: Op, nbytes: int, nranks: int) -> str:
+    """The doubling exchange for small payloads unless native is
+    preferred; joint (paired-word) ops stay native."""
+    t = _t()
+    if op.joint:
+        return "native"
+    if t._prefer_native.value:
+        return "native"
+    if nbytes < t._small.value:
+        return "recursive_doubling"
+    return "native"
+
+
+def prior_exscan(op: Op, nbytes: int, nranks: int) -> str:
+    return prior_scan(op, nbytes, nranks)
 
 
 def prior_reduce(op: Op, nbytes: int, nranks: int) -> str:

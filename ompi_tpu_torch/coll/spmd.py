@@ -12,7 +12,9 @@ Rabenseifner, nonoverlapping); the bcast (binomial, chain, pipelined,
 binary), reduce (binomial, pipelined), allgather (ring, bruck) and
 reduce-scatter (ring, recursive halving) algorithms; the alltoall
 (pairwise, bruck), gather and scatter (binomial) algorithms the priors
-pick; and the ring shift and sendrecv that ring attention is built on.
+pick; the prefix reductions (scan and exscan: native, recursive
+doubling, linear chain) and the barrier; and the ring shift and
+sendrecv that ring attention is built on.
 
 The round-based algorithms keep the JAX package's rounds and fold
 order: a ``ppermute`` there becomes a roll or an index over the rank
@@ -686,6 +688,143 @@ def scatter_binomial(x: torch.Tensor, root: int = 0) -> torch.Tensor:
             src, dst = (vr + root) % n, (vr + blk + root) % n
             buf[dst, vr + blk:vr + 2 * blk] = buf[src, vr + blk:vr + 2 * blk]
     return buf[ranks, vrank]
+
+
+# ---------------------------------------------------------------------------
+# scan / exscan / barrier
+# ---------------------------------------------------------------------------
+
+def _rows(x: Any, sl: slice) -> Any:
+    """Rows ``sl`` of every leaf (views)."""
+    return _tree_map(lambda leaf: leaf[sl], x)
+
+
+def _associative_scan(x: Any, op: Op, out: Any = None) -> Any:
+    """Inclusive prefix of x's rows in ``lax.associative_scan``'s
+    combine tree, not a left fold: adjacent pairs (0,1), (2,3), ... are
+    combined, the halved sequence is scanned recursively (the odd
+    prefixes), and each even prefix is an odd one combined with the next
+    row. The same operands meet in the same order as in the JAX
+    package's scan, so the bits are its bits. A row's prefix depends on
+    the rows before it alone, so the scan of x's first k rows is the
+    first k rows of x's scan. ``out``, if given, receives the result."""
+    n = _leaves(x)[0].shape[0]
+    if n < 2:
+        if out is None:
+            return x
+        _tree_map(lambda o, leaf: o.copy_(leaf), out, x)
+        return out
+    reduced = op.combine(_rows(x, slice(0, n - 1, 2)),
+                         _rows(x, slice(1, None, 2)))
+    odd = _associative_scan(reduced, op)
+    del reduced
+    last = slice(0, -1) if n % 2 == 0 else slice(None)
+    even = op.combine(_rows(odd, last), _rows(x, slice(2, None, 2)))
+    if out is None:
+        out = _tree_map(torch.empty_like, x)
+
+    def interleave(o, leaf, e, d):
+        o[0] = leaf[0]
+        o[2::2] = e
+        o[1::2] = d
+        return o
+
+    _tree_map(interleave, out, x, even, odd)
+    return out
+
+
+def _exscan_identity(row: Any, op: Op) -> Any:
+    """Rank 0's exscan block: the op's identity, or zeros when the op
+    has none (MPI leaves it undefined)."""
+    if op.has_identity:
+        return _tree_map(op.identity_like, row)
+    return _tree_map(torch.zeros_like, row)
+
+
+def scan_native(x: Any, op: Op) -> Any:
+    """Inclusive prefix reduction over ranks (reference: coll_base_scan.c).
+    The JAX package gathers every rank's block and runs
+    ``lax.associative_scan`` over the gathered rows; the rank-major
+    tensor is those rows already, so the port scans it in place of the
+    ``(n, n, ...)`` gather."""
+    return _associative_scan(x, op)
+
+
+def exscan_native(x: Any, op: Op) -> Any:
+    """Exclusive prefix reduction: rank r gets row r-1 of the native
+    scan, rank 0 the op's identity (zeros when it has none)."""
+    n = _leaves(x)[0].shape[0]
+    out = _tree_map(torch.empty_like, x)
+    _tree_map(lambda o, i: o[0].copy_(i), out,
+              _exscan_identity(_tree_map(lambda leaf: leaf[0], x), op))
+    if n > 1:
+        _associative_scan(_rows(x, slice(0, n - 1)), op,
+                          out=_rows(out, slice(1, None)))
+    return out
+
+
+def scan_recursive_doubling(x: Any, op: Op) -> Any:
+    """Inclusive prefix via recursive doubling: log2(n) rounds, round k
+    combining the prefix from rank r-2^k into rank r's (associative
+    order preserved, so non-commutative ops are safe). Ranks below 2^k
+    keep theirs, as the ``jnp.where`` of the JAX package's round does.
+
+    Reference: the scan recursion of coll_base_scan.c restructured to
+    the log-depth doubling exchange."""
+
+    def one(leaf):
+        n = leaf.shape[0]
+        acc = leaf
+        k = 1
+        while k < n:
+            nxt = acc.clone()
+            nxt[k:] = op.combine(acc[:n - k], acc[k:])
+            acc = nxt
+            k <<= 1
+        return acc
+
+    return _tree_map(one, x)
+
+
+def scan_linear_chain(x: Any, op: Op) -> Any:
+    """Inclusive prefix via the linear chain: the running prefix flows
+    rank to rank, each rank folding in its own block (the reference's
+    own recursion shape, coll_base_scan.c), n-1 hops."""
+
+    def one(leaf):
+        acc = leaf.clone()
+        for r in range(1, leaf.shape[0]):
+            acc[r] = op.combine(acc[r - 1], leaf[r])
+        return acc
+
+    return _tree_map(one, x)
+
+
+def _exscan_from_inclusive(inc: Any, x: Any, op: Op) -> Any:
+    """Shift an inclusive scan down one rank; rank 0 gets the op's
+    identity (exscan semantics)."""
+    out = _tree_map(torch.empty_like, inc)
+    _tree_map(lambda o, i: o[0].copy_(i), out,
+              _exscan_identity(_tree_map(lambda leaf: leaf[0], x), op))
+    _tree_map(lambda o, leaf: o[1:].copy_(leaf[:-1]), out, inc)
+    return out
+
+
+def exscan_recursive_doubling(x: Any, op: Op) -> Any:
+    """Exclusive prefix: recursive-doubling inclusive scan + one-hop
+    shift (reference: coll_base_exscan.c semantics)."""
+    return _exscan_from_inclusive(scan_recursive_doubling(x, op), x, op)
+
+
+def exscan_linear_chain(x: Any, op: Op) -> Any:
+    """Exclusive prefix via the linear chain + one-hop shift."""
+    return _exscan_from_inclusive(scan_linear_chain(x, op), x, op)
+
+
+def barrier(token: torch.Tensor) -> torch.Tensor:
+    """The fabric barrier: a one-int32-per-rank sum over the ranks (the
+    JAX package's ``lax.psum`` of a one), every rank receiving n."""
+    return _broadcast_ranks(token.sum(0, dtype=token.dtype), token.shape[0])
 
 
 # ---------------------------------------------------------------------------

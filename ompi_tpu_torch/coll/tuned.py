@@ -1,6 +1,7 @@
 """coll/tuned — the decision layer (port of ``ompi_tpu/coll/tuned.py``
 for allreduce, alltoall, bcast, reduce, allgather, reduce_scatter_block,
-gather and scatter).
+gather, scatter, scan and exscan; the ragged variants and the barrier
+are XlaColl's, inherited).
 
 Precedence, as in the JAX package: forced var
 (``coll_tuned_<op>_algorithm``) > the user's rules file
@@ -86,6 +87,10 @@ _force_bcast = _V("bcast_algorithm", type=str, default="",
                   description="Force a bcast algorithm by name")
 _force_reduce = _V("reduce_algorithm", type=str, default="",
                    description="Force a reduce algorithm by name")
+_force_scan = _V("scan_algorithm", type=str, default="",
+                 description="Force the scan algorithm")
+_force_exscan = _V("exscan_algorithm", type=str, default="",
+                   description="Force the exscan algorithm")
 _force_reduce_scatter = _V("reduce_scatter_algorithm", type=str, default="",
                            description="Force a reduce_scatter algorithm "
                                        "by name")
@@ -146,6 +151,16 @@ REDUCE_ALGOS: dict[str, Callable] = {
     "native": spmd.reduce_native,
     "binomial": spmd.reduce_binomial,
     "pipelined": spmd.reduce_pipelined,
+}
+SCAN_ALGOS: dict[str, Callable] = {
+    "native": spmd.scan_native,
+    "recursive_doubling": spmd.scan_recursive_doubling,
+    "linear_chain": spmd.scan_linear_chain,
+}
+EXSCAN_ALGOS: dict[str, Callable] = {
+    "native": spmd.exscan_native,
+    "recursive_doubling": spmd.exscan_recursive_doubling,
+    "linear_chain": spmd.exscan_linear_chain,
 }
 REDUCE_SCATTER_ALGOS: dict[str, Callable] = {
     "native": spmd.reduce_scatter_native,
@@ -258,13 +273,14 @@ _SPACES = {
     "allgather": ALLGATHER_ALGOS,
     "bcast": BCAST_ALGOS,
     "reduce": REDUCE_ALGOS,
+    "scan": SCAN_ALGOS,
+    "exscan": EXSCAN_ALGOS,
     "reduce_scatter": REDUCE_SCATTER_ALGOS,
     "gather": GATHER_ALGOS,
     "scatter": SCATTER_ALGOS,
 }
 
-#: Algorithm names that exist but are registered lazily. The JAX
-#: package's scan and exscan spaces are not ported yet.
+#: Algorithm names that exist but are registered lazily.
 _LAZY_ALGOS: dict[str, frozenset] = {
     "allreduce": frozenset({
         "pallas_ring", "pallas_bidir", "pallas_rd", "pallas_ring_chunked",
@@ -309,9 +325,7 @@ def _algo(algos: dict, opname: str, name: str) -> Callable:
     return fn
 
 
-#: Operation names a rules file may key (the JAX package's; scan and
-#: exscan have no algorithm space in the port yet, so a rule there
-#: names an unknown algorithm).
+#: Operation names a rules file may key (the JAX package's).
 _KNOWN_OPNAMES = frozenset({
     "allreduce", "alltoall", "allgather", "bcast", "reduce", "scan",
     "exscan", "reduce_scatter", "gather", "scatter",
@@ -521,6 +535,43 @@ def decide_bcast(nbytes: int, nranks: int) -> str:
     return priors.prior_bcast(nbytes, nranks)
 
 
+def decide_scan(op: Op, nbytes: int, nranks: int) -> str:
+    """Scan space: the log-depth doubling exchange for small payloads,
+    the associative-scan native plan otherwise; joint (paired-word) ops
+    stay native — the variants exchange leaves positionally."""
+    forced = _force_scan.value
+    if forced:
+        return forced
+    got = _ruled("scan", nbytes, nranks)
+    if got:
+        return got
+    if op.joint:
+        return "native"
+    got = _sched_lookup("scan", nbytes, nranks)
+    if got:
+        return got
+    from .sched import priors
+
+    return priors.prior_scan(op, nbytes, nranks)
+
+
+def decide_exscan(op: Op, nbytes: int, nranks: int) -> str:
+    forced = _force_exscan.value
+    if forced:
+        return forced
+    got = _ruled("exscan", nbytes, nranks)
+    if got:
+        return got
+    if op.joint:
+        return "native"
+    got = _sched_lookup("exscan", nbytes, nranks)
+    if got:
+        return got
+    from .sched import priors
+
+    return priors.prior_exscan(op, nbytes, nranks)
+
+
 def decide_reduce(op: Op, nbytes: int, nranks: int) -> str:
     forced = _force_reduce.value
     if forced:
@@ -612,6 +663,14 @@ class TunedColl(XlaColl):
     NAME = "tuned"
     PRIORITY = 80
     DESCRIPTION = "algorithm decision layer (reference: coll/tuned)"
+
+    def persistent_program(self, comm, opname, x, args):
+        """The allreduce decision and its plan, resolved once (the host
+        tier is the blocking call's alone, as in the JAX package)."""
+        if opname != "allreduce" or comm.size == 1:
+            return super().persistent_program(comm, opname, x, args)
+        op = op_lookup(args[0])
+        return self._allreduce_choice(comm, _leaf_check(comm, x), op)[1]
 
     def _allreduce_choice(self, comm, x, op):
         """(algo, plan) of the decision pipeline for allreduce; x is
@@ -771,6 +830,26 @@ class TunedColl(XlaColl):
                str(x.dtype))
         plan = compile_plan(comm, key, lambda b: fn(b, op, root=root))
         return plan(x)[root]
+
+    def _prefix(self, comm, x, op, opname: str, decide, algos, native):
+        """Shared scan/exscan dispatch over the tuned decision space
+        (reference: the per-op decision functions of coll/tuned)."""
+        op = op_lookup(op)
+        x = rank_major_check(comm, x)
+        if comm.size == 1:
+            return native(self, comm, x, op)
+        algo = decide(op, _nbytes(x), comm.size)
+        fn = _algo(algos, opname, algo)
+        key = (opname, algo, op.cache_key, tuple(x.shape), str(x.dtype))
+        return compile_plan(comm, key, lambda b: fn(b, op))(x)
+
+    def scan(self, comm, x, op):
+        return self._prefix(comm, x, op, "scan", decide_scan, SCAN_ALGOS,
+                            XlaColl.scan)
+
+    def exscan(self, comm, x, op):
+        return self._prefix(comm, x, op, "exscan", decide_exscan,
+                            EXSCAN_ALGOS, XlaColl.exscan)
 
     def reduce_scatter_block(self, comm, x, op):
         op = op_lookup(op)

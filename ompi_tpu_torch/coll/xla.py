@@ -6,6 +6,12 @@ It keeps the component name ``xla`` so selection vars
 packages. Its collectives are PyTorch's own operations over the rank
 axis (``spmd.*_native``): the JAX package leaves this path to XLA and
 has no Pallas kernel on it.
+
+The ragged variants (allgatherv, alltoallv, reduce_scatter) pad every
+block to the longest count, run the fixed-shape collective of this
+component (so ``TunedColl``'s decisions, which inherit them) and slice
+the live rows back out, all on the communicator's device. A result every
+rank holds is one tensor, as the port's gather convention has it.
 """
 
 from __future__ import annotations
@@ -61,6 +67,16 @@ class XlaColl(CollComponent):
         if comm.size == 1:
             return x
         return self._allreduce_plan(comm, x, op)(x)
+
+    def persistent_program(self, comm, opname, x, args):
+        """The native allreduce plan, bound once."""
+        if opname != "allreduce":
+            return None
+        op = op_lookup(args[0])
+        x = _leaf_check(comm, x)
+        if comm.size == 1:
+            return lambda b: b
+        return self._allreduce_plan(comm, x, op)
 
     def bcast(self, comm, x, root):
         x = _leaf_check(comm, x)
@@ -129,3 +145,108 @@ class XlaColl(CollComponent):
         buf = scatter_buffer(comm, x)
         key = ("scatter", "native", tuple(buf.shape), str(buf.dtype))
         return compile_plan(comm, key, spmd.scatter_native)(buf)
+
+    def scan(self, comm, x, op):
+        op = op_lookup(op)
+        x = rank_major_check(comm, x)
+        if comm.size == 1:
+            return x
+        key = ("scan", "native", op.cache_key, tuple(x.shape), str(x.dtype))
+        return compile_plan(
+            comm, key, lambda b: spmd.scan_native(b, op))(x)
+
+    def exscan(self, comm, x, op):
+        op = op_lookup(op)
+        x = rank_major_check(comm, x)
+        if comm.size == 1:
+            return torch.zeros_like(x)
+        key = ("exscan", "native", op.cache_key, tuple(x.shape),
+               str(x.dtype))
+        return compile_plan(
+            comm, key, lambda b: spmd.exscan_native(b, op))(x)
+
+    def barrier(self, comm):
+        """The fabric token: one int32 per rank summed over the ranks.
+        The communicator waits for it (``barrier()``) or a persistent
+        request records its completion event after it."""
+        if comm.size == 1:
+            return None
+        plan = compile_plan(comm, ("barrier",), spmd.barrier)
+        return plan(torch.ones(comm.size, dtype=torch.int32,
+                               device=comm.device))
+
+    # -- vector (ragged) variants ----------------------------------------
+    # Pad every ragged block to the max count, run the cached fixed-shape
+    # plan, slice the live rows back out on the device. Counts are Python
+    # ints, so each count profile is its own plan.
+
+    @staticmethod
+    def _pad_stack(comm, values, max_len):
+        """(size, max_len, ...) on the comm's device: rank r's rows, then
+        zeros."""
+        first = torch.as_tensor(values[0])
+        out = torch.zeros((comm.size, max_len) + tuple(first.shape[1:]),
+                          dtype=first.dtype, device=comm.device)
+        for r, v in enumerate(values):
+            v = torch.as_tensor(v)
+            out[r, :v.shape[0]] = v
+        return out
+
+    def allgatherv(self, comm, values):
+        if len(values) != comm.size:
+            raise ArgumentError(
+                f"need one block per rank ({comm.size}), got {len(values)}")
+        counts = [torch.as_tensor(v).shape[0] for v in values]
+        m = max(counts) if counts else 0
+        if m == 0:
+            return torch.as_tensor(values[0]).to(comm.device)
+        gathered = self.allgather(comm, self._pad_stack(comm, values, m))
+        # (size, size, m, ...): every rank's copy is the same; take rank
+        # 0's and drop the padding of each segment.
+        full = gathered[0]
+        return torch.cat([full[r, :c] for r, c in enumerate(counts)], 0)
+
+    def alltoallv(self, comm, blocks):
+        n = comm.size
+        if len(blocks) != n:
+            raise ArgumentError(f"need {n} send lists, got {len(blocks)}")
+        tensors = [[torch.as_tensor(blocks[s][d]).to(comm.device)
+                    for d in range(n)] for s in range(n)]
+        counts = [[tensors[s][d].shape[0] for d in range(n)]
+                  for s in range(n)]
+        m = max((c for row in counts for c in row), default=0)
+        if m == 0:
+            return [tensors[0][d] for d in range(n)]
+        padded = []
+        for s in range(n):
+            row = tensors[s][0].new_zeros(
+                (n, m) + tuple(tensors[s][0].shape[1:]))
+            for d in range(n):
+                row[d, :counts[s][d]] = tensors[s][d]
+            padded.append(row)
+        swapped = self.alltoall(comm, comm.from_rank_values(padded))
+        # swapped[d, s] is src s's padded block for dst d
+        return [torch.cat([swapped[d, s, :counts[s][d]] for s in range(n)],
+                          0)
+                for d in range(n)]
+
+    def reduce_scatter(self, comm, values, counts, op):
+        op = op_lookup(op)
+        n = comm.size
+        if len(values) != n:
+            raise ArgumentError(
+                f"need one buffer per rank ({n}), got {len(values)}")
+        if len(counts) != n:
+            raise ArgumentError(f"need {n} counts, got {len(counts)}")
+        total = sum(counts)
+        for v in values:
+            if torch.as_tensor(v).shape[0] != total:
+                raise ArgumentError(
+                    f"buffer rows {torch.as_tensor(v).shape[0]} != "
+                    f"sum(counts) {total}")
+        red = self.allreduce(comm, comm.from_rank_values(values), op)[0]
+        out, start = [], 0
+        for c in counts:
+            out.append(red[start:start + c])
+            start += c
+        return out

@@ -1,16 +1,27 @@
 """Communicators: groups of ranks with collective capability.
 
-Port of ``ompi_tpu/communicator.py`` (so far: construction, the
-per-communicator coll vtable, ``allreduce``, ``bcast``, ``reduce``,
-``allgather``, ``reduce_scatter_block``, ``alltoall``, ``gather``,
-``scatter``, ``check_rank``, ``dup``,
-``split``, the plan cache, the cid counter and ``_check_alive``; epochs
-and revocation come with the fault-tolerance slice).
+Port of ``ompi_tpu/communicator.py``: construction, the per-communicator
+coll vtable, every blocking collective (allreduce, bcast, reduce,
+allgather, reduce_scatter_block, alltoall, gather, scatter, scan,
+exscan, barrier, the ragged variants and the neighborhood collectives),
+the persistent ``*_init`` forms and ``start_all``, ``check_rank``,
+``dup``, ``create``, ``split``, ``set_name``, ``info``, attributes and
+the errhandler, the plan cache, the cid counter and ``_check_alive``.
+Point-to-point, the nonblocking ``i*`` forms and partitioned requests
+come with their slices; epochs and revocation with fault tolerance.
 
-Buffer convention ("rank-major"): a collective argument is
-a contiguous ``(size, ...)`` tensor on the communicator's device whose
-leading axis is the rank. ``put_rank_major`` builds one. All ranks of a
-communicator share one device.
+Buffer convention ("rank-major"): a collective argument is a contiguous
+``(size, ...)`` tensor on the communicator's device whose leading axis
+is the rank. ``put_rank_major`` and ``from_rank_values`` build one. All
+ranks of a communicator share one device.
+
+Ragged convention: the vector variants take per-rank lists of blocks
+whose leading dims are the counts (``blocks[src][dst]`` for the
+alltoalls). Their results are tensors on the communicator's device: a
+list with one entry per receiving rank, or one tensor for a result
+every rank holds (allgatherv) or that root alone holds (gatherv), as a
+gather's result is root's rows alone. The neighborhood collectives
+return ``{rank: tensor}``.
 """
 
 from __future__ import annotations
@@ -22,8 +33,10 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from .core.attributes import HasAttributes
 from .core.counters import SPC
-from .core.errors import ArgumentError, CommError, RankError
+from .core.errors import ArgumentError, CommError, HasErrhandler, RankError
+from .core.info import Info
 from .group import Group
 
 _cid_counter = itertools.count(0)
@@ -37,7 +50,7 @@ def _next_cid() -> int:
         return next(_cid_counter)
 
 
-class Communicator:
+class Communicator(HasAttributes, HasErrhandler):
     """A communication context over an ordered set of virtual ranks."""
 
     def __init__(
@@ -46,11 +59,13 @@ class Communicator:
         world_procs: Sequence,
         *,
         name: str = "",
+        info: Optional[Info] = None,
         parent_cid: Optional[int] = None,
     ) -> None:
         self.group = group
         self.cid = _next_cid()
         self.name = name or f"comm{self.cid}"
+        self.info = info or Info()
         self.parent_cid = parent_cid
         self._freed = False
         self._world_procs = world_procs
@@ -58,6 +73,7 @@ class Communicator:
         self.device = world_procs[0].device
         self._plan_cache: dict[tuple, Any] = {}
         self._coll: dict[str, tuple[Any, Any]] = {}
+        self.topo = None  # attached by topo (cart/graph/dist_graph)
         self._select_frameworks()
         live_comms.add(self)
 
@@ -81,6 +97,16 @@ class Communicator:
                 f"{self.size}"
             )
         return arr.to(self.device).contiguous()
+
+    def from_rank_values(self, values: Sequence) -> torch.Tensor:
+        """One contiguous (size, ...) tensor on this comm's device from
+        one value per rank (tensors or numpy arrays of one shape)."""
+        if len(values) != self.size:
+            raise ArgumentError(
+                f"{len(values)} values for comm of size {self.size}"
+            )
+        return torch.stack(
+            [torch.as_tensor(v).to(self.device) for v in values])
 
     def check_rank(self, rank: int) -> int:
         if not 0 <= rank < self.size:
@@ -135,14 +161,145 @@ class Communicator:
         holding row r."""
         return self._coll_call("scatter", x, self.check_rank(root))
 
+    def scan(self, x, op="sum"):
+        """Inclusive prefix reduction: rank r gets ranks 0..r combined."""
+        return self._coll_call("scan", x, op)
+
+    def exscan(self, x, op="sum"):
+        """Exclusive prefix reduction: rank r gets ranks 0..r-1 combined,
+        rank 0 the op's identity (zeros where the op has none, and from
+        BasicColl, as in the JAX package)."""
+        return self._coll_call("exscan", x, op)
+
+    def barrier(self) -> None:
+        """Returns once the barrier's one-int32-per-rank reduction has
+        completed (its CUDA event on the current stream has passed)."""
+        from .coll.framework import record_completion
+
+        event = record_completion(self._coll_call("barrier"))
+        if event is not None:
+            event.synchronize()
+
+    # vector (ragged) variants — per-rank block lists carry the counts
+    def allgatherv(self, values):
+        return self._coll_call("allgatherv", list(values))
+
+    def gatherv(self, values, root: int = 0):
+        return self._coll_call("gatherv", list(values),
+                               self.check_rank(root))
+
+    def scatterv(self, blocks, root: int = 0):
+        return self._coll_call("scatterv", list(blocks),
+                               self.check_rank(root))
+
+    def alltoallv(self, blocks):
+        return self._coll_call("alltoallv", [list(b) for b in blocks])
+
+    def alltoallw(self, blocks):
+        return self._coll_call("alltoallw", [list(b) for b in blocks])
+
+    def reduce_scatter(self, values, counts, op="sum"):
+        return self._coll_call("reduce_scatter", list(values),
+                               list(counts), op)
+
+    # neighborhood collectives (need an attached cart/graph topology)
+    def neighbor_allgather(self, x):
+        return self._coll_call("neighbor_allgather", x)
+
+    def neighbor_alltoall(self, sendblocks):
+        return self._coll_call("neighbor_alltoall", sendblocks)
+
+    # Persistent collectives (MPI-4 *_init; reference: the operation table
+    # of coll_base_functions.h:45-66 and ompi/mpiext/pcollreq): start()
+    # re-dispatches the program resolved on the first start against the
+    # bound buffer. Every blocking operation above has an _init form.
+    def _pinit(self, opname: str, x, *args):
+        from .coll.framework import PersistentColl
+
+        return PersistentColl(self, opname, args, x)
+
+    def allreduce_init(self, x, op="sum"):
+        return self._pinit("allreduce", x, op)
+
+    def bcast_init(self, x, root: int = 0):
+        return self._pinit("bcast", x, self.check_rank(root))
+
+    def reduce_init(self, x, op="sum", root: int = 0):
+        return self._pinit("reduce", x, op, self.check_rank(root))
+
+    def allgather_init(self, x):
+        return self._pinit("allgather", x)
+
+    def reduce_scatter_block_init(self, x, op="sum"):
+        return self._pinit("reduce_scatter_block", x, op)
+
+    def alltoall_init(self, x):
+        return self._pinit("alltoall", x)
+
+    def gather_init(self, x, root: int = 0):
+        return self._pinit("gather", x, self.check_rank(root))
+
+    def scatter_init(self, x, root: int = 0):
+        return self._pinit("scatter", x, self.check_rank(root))
+
+    def scan_init(self, x, op="sum"):
+        return self._pinit("scan", x, op)
+
+    def exscan_init(self, x, op="sum"):
+        return self._pinit("exscan", x, op)
+
+    def barrier_init(self):
+        return self._pinit("barrier", None)
+
+    def allgatherv_init(self, values):
+        return self._pinit("allgatherv", list(values))
+
+    def gatherv_init(self, values, root: int = 0):
+        return self._pinit("gatherv", list(values), self.check_rank(root))
+
+    def scatterv_init(self, blocks, root: int = 0):
+        return self._pinit("scatterv", list(blocks), self.check_rank(root))
+
+    def alltoallv_init(self, blocks):
+        return self._pinit("alltoallv", [list(b) for b in blocks])
+
+    def alltoallw_init(self, blocks):
+        return self._pinit("alltoallw", [list(b) for b in blocks])
+
+    def reduce_scatter_init(self, values, counts, op="sum"):
+        return self._pinit("reduce_scatter", list(values), list(counts), op)
+
+    def neighbor_allgather_init(self, x):
+        return self._pinit("neighbor_allgather", x)
+
+    def neighbor_alltoall_init(self, sendblocks):
+        return self._pinit("neighbor_alltoall", sendblocks)
+
     # -- construction of derived communicators ----------------------------
 
-    def dup(self) -> "Communicator":
-        """A new communicator over the same group; re-runs coll
-        selection, so it sees priority vars set since this one."""
+    def dup(self, info: Optional[Info] = None) -> "Communicator":
+        """A new communicator over the same group, with a copy of this
+        one's info (or ``info``) and attributes (each keyval's copy
+        callback decides); re-runs coll selection, so it sees priority
+        vars set since this one."""
         self._check_alive()
-        return Communicator(
+        new = Communicator(
             self.group, self._world_procs, name=f"{self.name}.dup",
+            info=(info or self.info.dup()), parent_cid=self.cid,
+        )
+        self.copy_attrs_to(new)
+        return new
+
+    def create(self, group: Group) -> "Communicator":
+        """MPI_Comm_create: a new communicator over a subgroup."""
+        self._check_alive()
+        for wr in group.world_ranks:
+            if wr not in self.group:
+                raise ArgumentError(
+                    f"group rank {wr} not in parent {self.name}"
+                )
+        return Communicator(
+            group, self._world_procs, name=f"{self.name}.sub",
             parent_cid=self.cid,
         )
 
@@ -175,11 +332,20 @@ class Communicator:
         return out
 
     def free(self) -> None:
+        self.free_attrs()
         self._plan_cache.clear()
         self._freed = True
+
+    def set_name(self, name: str) -> None:
+        self.name = name
 
     def __repr__(self) -> str:
         return (
             f"<Communicator {self.name} cid={self.cid} size={self.size} "
             f"device={self.device}>"
         )
+
+
+def start_all(requests) -> list:
+    """MPI_Startall: start every request in order."""
+    return [r.start() for r in requests]

@@ -532,7 +532,11 @@ def test_registered_names_match_jax_package():
 
 
 def test_one_rank_forced_chunked_runs_the_one_rank_kernel(worlds):
-    solo = worlds[1].split([0] + [-1] * 7)[0]
+    # SelfColl (priority 100) takes every one-rank communicator; below
+    # tuned's 80 it leaves this one to TunedColl and its forced name.
+    with both_vars({"coll_self_priority": 70}):
+        solo = worlds[1].split([0] + [-1] * 7)[0]
+    assert solo._coll["allreduce"][0].NAME == "tuned"
     old = tconfig.get("coll_pallas_segment_bytes")
     tconfig.VARS.set("coll_pallas_segment_bytes", 4096)
     try:
