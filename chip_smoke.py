@@ -98,9 +98,10 @@ Phases (any failure raises and exits non-zero):
    two vtable routes: a ``world.dup()`` with
    ``coll_pallas_priority=100`` (PallasColl) and one with TunedColl and
    ``coll_tuned_<op>_algorithm`` forcing each kernel's name. It runs as
-   nine paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
+   ten paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
    bidirectional ring; alltoall/gather/scatter; the schedule compiler;
-   the quantized wire; ring attention; the ring hop; the surface);
+   the quantized wire; ring attention; the ring hop; the surface;
+   point-to-point and the nonblocking collectives);
    the launch counters are zeroed just before each path and read just
    after it, every kernel of the path must have launched there, and
    every result must equal its plain version (the kernels line sums a
@@ -204,6 +205,27 @@ Phases (any failure raises and exits non-zero):
      ``coll_self_priority`` at 70, below tuned's 80, so that TunedColl
      and not SelfColl serves it and the forced name reaches the one-rank
      kernel.
+   - point-to-point and the nonblocking collectives: the 15 ``i*``
+     forms at 1 MiB per rank on both routes, each request holding a CUDA
+     event after it starts and bitwise its blocking call, each
+     kernel-backed form on PallasColl +1 launch of its kernel and the
+     others none; p2p through TunedColl's communicator (ob1 over the
+     ``ici`` and ``self`` BTLs): an eager ring at 4 KiB whose send
+     buffers are written once the sends completed, self sends at 4 KiB
+     and 1 GiB, ANY_SOURCE/ANY_TAG in arrival order, improbe/mrecv,
+     persistent send/recv started twice and a 1 GiB rendezvous, each
+     received tensor bitwise a CPU copy of what was sent and in storage
+     of its own, the rendezvous timed in turns with ``x.clone()`` beside
+     its bound (2 B over 3.35 TB/s); a 1 GiB-per-rank ``iallreduce`` on
+     PallasColl with 16 eager p2p requests posted while it runs (one
+     chunked-ring launch, bitwise the blocking call, every message
+     bitwise), then timed in turns with the blocking call by CUDA
+     events; every ``coll.nbc`` entry point at 64 MiB and 4 KiB per
+     rank, bitwise the same schedule on a CPU copy of the input and its
+     own second run (timed by the host's clock), a SUM within 1e-5 of
+     sum |x| of the blocking call and every other op bitwise, and three
+     schedules started together and completed out of order; its times
+     on a ``p2p_nbc`` JSON line, its peak (reckoned ~26 GB) under 40 GB.
    Each case frees its input, output and plain result before the next;
    ``max_memory_allocated`` is printed for each path and for the whole
    main path.
@@ -2110,6 +2132,24 @@ def ragged_checks(comm, route, ttopo, gen) -> None:
         f"periodic 2 x 4 cart and a periodic ring of 2 equal to numpy")
 
 
+def event_ms(calls: dict, reps: int) -> dict:
+    """name -> CUDA-event times (ms) of ``reps`` calls of each, taken in
+    turns."""
+    import torch
+
+    ms = {name: [] for name in calls}
+    for _ in range(reps):
+        for name, call in calls.items():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            call()
+            e1.record()
+            e1.synchronize()
+            ms[name].append(e0.elapsed_time(e1))
+    return ms
+
+
 def persistent_checks(pcomm, tcomm, counters, gen) -> None:
     """Every collective ``*_init`` at 1 MiB per rank on PallasColl,
     started twice: bitwise the blocking call, each started kernel's
@@ -2231,18 +2271,8 @@ def persistent_gib(pcomm, counters, gen) -> None:
         f"blocking call; {', '.join(f'{t:.3f}' for t in times)} ms host "
         f"wall per start and wait")
     del want
-    calls = {"blocking": lambda: pcomm.allreduce(x, "sum"),
-             "persistent": lambda: preq.start().wait()}
-    ms = {name: [] for name in calls}
-    for _ in range(PERSIST_TIMED):
-        for name, call in calls.items():
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            call()
-            e1.record()
-            e1.synchronize()
-            ms[name].append(e0.elapsed_time(e1))
+    ms = event_ms({"blocking": lambda: pcomm.allreduce(x, "sum"),
+                   "persistent": lambda: preq.start().wait()}, PERSIST_TIMED)
     check_sems(kernel)
     log(f"[main] PallasColl allreduce at {GIB} B/rank x {N} ranks by CUDA "
         f"events, {PERSIST_TIMED} calls each: " + "; ".join(
@@ -2336,6 +2366,361 @@ def surface_path(world, pcomm, tcomm, config, counters, gen) -> dict:
     return {}
 
 
+# The p2p/nonblocking path: the 15 i* forms at 1 MiB per rank on both
+# routes, a 1 GiB iallreduce on PallasColl with host p2p posted while it
+# runs, point-to-point at 4 KiB (eager) and 1 GiB (rendezvous) per
+# message, and every nbc.i* at 64 MiB and 4 KiB per rank.
+P2P_EAGER = 4 * KIB
+P2P_RNDV = GIB
+NBC_SIZES = (64 * MIB, 4 * KIB)
+P2P_TIMED = 10  # timed calls each, alternating
+# Reckoned before the run: the 1 GiB iallreduce holds its input, the
+# blocking call's result and its own (3 x 8 GiB), the rest far less.
+P2P_PEAK_RECKONED, P2P_PEAK_LIMIT = 26e9, 40e9
+NBC_CASES = {  # nbc entry point -> (the blocking operation, its args)
+    "ibcast": ("bcast", (BCAST_ROOT,)),
+    "iallreduce": ("allreduce", ("sum",)),
+    "ireduce": ("reduce", ("max", REDUCE_ROOT)),
+    "iallgather": ("allgather", ()),
+    "ialltoall": ("alltoall", ()),
+    "igather": ("gather", (GATHER_ROOT,)),
+    "iscatter": ("scatter", (SCATTER_ROOT,)),
+    "ireduce_scatter_block": ("reduce_scatter_block", ("sum",)),
+    "iscan": ("scan", ("max",)),
+    "iexscan": ("exscan", ("sum",)),
+    "ibarrier": ("barrier", ()),
+}
+SUM_RTOL = 1e-5  # tests/test_nbc.py's, of sum |x| per element
+
+
+def own_storage(got, *others, what: str) -> None:
+    ptr = got.untyped_storage().data_ptr()
+    if any(ptr == o.untyped_storage().data_ptr() for o in others):
+        raise AssertionError(f"{what}: shares storage with a sender")
+
+
+def icoll_checks(pcomm, tcomm, counters, gen) -> None:
+    """The 15 ``i*`` forms at 1 MiB per rank on both routes: each request
+    holds a CUDA event after it starts, each result is bitwise the
+    blocking call, and on PallasColl each kernel-backed form launches its
+    kernel once and the others none."""
+    import torch
+    from ompi_tpu_torch.topo import topology as ttopo
+
+    vals, blocks, _, counts, rs_vals = ragged_inputs(gen)
+    for comm, route in ((pcomm, "PallasColl"), (tcomm, "TunedColl")):
+        cart = ttopo.cart_create(comm, [2, 4], [True, True])
+        cx, _ = surface_inputs("allreduce", gen)
+        sendb = {r: random_rank_major((4, 512), torch.float32, gen)
+                 for r in range(N)}
+        cases = {op: surface_inputs(op, gen) + (comm,)
+                 for op in PCOMM_KERNELS}
+        cases.update({
+            "scan": (cx, ("sum",), comm), "barrier": (None, (), comm),
+            "allgatherv": (vals, (), comm), "alltoallv": (blocks, (), comm),
+            "reduce_scatter": (rs_vals, (counts, "sum"), comm),
+            "neighbor_allgather": (cx, (), cart),
+            "neighbor_alltoall": (sendb, (), cart)})
+        for opname, (x, args, c) in cases.items():
+            call = () if x is None else (x,)
+            before = counters.launches()
+            req = getattr(c, f"i{opname}")(*call, *args)
+            if req._event is None:
+                raise AssertionError(f"{route} i{opname}: no CUDA event")
+            got = req.result()
+            after = counters.launches()
+            grew = {k: after[k] - before.get(k, 0) for k in after
+                    if after[k] != before.get(k, 0)}
+            kernel = PCOMM_KERNELS.get(opname)
+            if route == "PallasColl" and grew != ({kernel: 1} if kernel
+                                                  else {}):
+                raise AssertionError(f"{route} i{opname}: launches {grew}")
+            if opname != "barrier":
+                same(got, getattr(c, opname)(*call, *args),
+                     f"{route} i{opname}")
+        log(f"[main] {route} the 15 i* forms at {MIB} B/rank: each held a "
+            f"CUDA event, bitwise the blocking call"
+            + (", each kernel-backed form +1 launch of its kernel, the "
+               "others none" if route == "PallasColl" else ""))
+        del cases, cart
+
+
+def iallreduce_gib(pcomm, tcomm, counters, gen) -> dict:
+    """A 1 GiB-per-rank ``iallreduce`` on PallasColl (the chunked ring):
+    while it runs the host posts eager sends and receives around a ring
+    of ranks; then the iallreduce is bitwise the blocking call with one
+    launch, and each message bitwise its CPU copy. Then ``P2P_TIMED``
+    nonblocking calls (start and wait) and blocking calls by CUDA events,
+    in turns."""
+    import torch
+
+    kernel = counters.KERNELS["ring_allreduce_chunked"]
+    x = random_rank_major((N, GIB // 4), torch.float32, gen)
+    want = pcomm.allreduce(x, "sum")
+    msgs = [random_rank_major((P2P_EAGER // 4,), torch.float32, gen)
+            for _ in range(N)]
+    hmsgs = [m.to("cpu", copy=True) for m in msgs]
+    torch.cuda.synchronize()
+    before = kernel.launches
+    req = pcomm.iallreduce(x, "sum")
+    if req._event is None:
+        raise AssertionError("iallreduce 1 GiB: no CUDA event")
+    t0 = time.perf_counter()
+    rreqs = [tcomm.rank((r + 1) % N).irecv(source=r, tag=21)
+             for r in range(N)]
+    sreqs = [tcomm.rank(r).isend(msgs[r], dest=(r + 1) % N, tag=21)
+             for r in range(N)]
+    posted_ms = (time.perf_counter() - t0) * 1e3
+    running = not req._event.query()
+    if not all(r.done for r in rreqs + sreqs):
+        raise AssertionError("host p2p beside the iallreduce: unmatched")
+    req.wait()
+    if kernel.launches != before + 1:
+        raise AssertionError(f"iallreduce 1 GiB: "
+                             f"{kernel.launches - before} launches")
+    check_sems(kernel)
+    if not torch.equal(bits(req.result()), bits(want)):
+        raise AssertionError("iallreduce 1 GiB: not the blocking call's "
+                             "bits")
+    for r, rr in enumerate(rreqs):
+        same(rr.result(), hmsgs[r], f"eager message {r} beside the "
+                                    f"iallreduce")
+    log(f"[main] PallasColl iallreduce at {GIB} B/rank x {N} ranks: a CUDA "
+        f"event, ring_allreduce_chunked +1, bitwise the blocking call; "
+        f"{2 * N} eager p2p requests posted in {posted_ms:.3f} ms host "
+        f"while it ran (still running after: {running}), every message "
+        f"bitwise its CPU copy")
+    del want, req
+    ms = event_ms({"blocking": lambda: pcomm.allreduce(x, "sum"),
+                   "nonblocking": lambda: pcomm.iallreduce(x, "sum").wait()},
+                  P2P_TIMED)
+    check_sems(kernel)
+    out = {f"{k}_allreduce_gib_ms": statistics.median(v)
+           for k, v in ms.items()}
+    log(f"[main] PallasColl allreduce at {GIB} B/rank by CUDA events, "
+        f"{P2P_TIMED} calls each in turns: " + "; ".join(
+            f"{k} p50 {statistics.median(v):.3f} ms, min {min(v):.3f}"
+            for k, v in ms.items()))
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def p2p_checks(tcomm, gen) -> dict:
+    """Point-to-point on the card, n = 8: an eager ring at 4 KiB (each
+    sender's buffer written once its send completed), self sends at 4 KiB
+    and 1 GiB, ANY_SOURCE/ANY_TAG arrival order, improbe/mrecv,
+    persistent send/recv started twice, a 1 GiB rendezvous (its buffer
+    written after the match); every received tensor bitwise a CPU copy of
+    what was sent and in storage of its own. Then the 1 GiB rendezvous
+    by CUDA events beside ``x.clone()``, in turns."""
+    import torch
+    from ompi_tpu_torch.communicator import start_all
+    from ompi_tpu_torch.core.counters import SPC
+
+    eps = [tcomm.rank(r) for r in range(N)]
+    row = P2P_EAGER // 4
+    eager0 = SPC.read("pml_eager_sends")
+    xs = [random_rank_major((row,), torch.float32, gen) for _ in range(N)]
+    hx = [x.to("cpu", copy=True) for x in xs]
+    sreqs = [eps[r].isend(xs[r], dest=(r + 1) % N, tag=1) for r in range(N)]
+    if not all(s.done for s in sreqs):
+        raise AssertionError("an eager send did not complete at once")
+    for x in xs:
+        x.mul_(-1.0).add_(7.0)  # MPI lets the sender reuse its buffer now
+    for r in range(N):
+        got = eps[(r + 1) % N].recv(source=r, tag=1)
+        same(got, hx[r], f"eager {r}->{(r + 1) % N}")
+        own_storage(got, *xs, what=f"eager {r}->{(r + 1) % N}")
+    if SPC.read("pml_eager_sends") != eager0 + N:
+        raise AssertionError("eager ring: pml_eager_sends")
+    for nbytes in (P2P_EAGER, P2P_RNDV):
+        x = random_rank_major((nbytes // 4,), torch.float32, gen)
+        hxs = x.to("cpu", copy=True)
+        if not eps[3].isend(x, dest=3, tag=2).done:
+            raise AssertionError("self send not complete at once")
+        x.zero_()
+        got = eps[3].recv(source=3, tag=2)
+        same(got, hxs, f"self send {nbytes} B")
+        own_storage(got, x, what=f"self send {nbytes} B")
+        del x, got, hxs
+    order = ((1, 9), (2, 3), (6, 7))
+    for src, tag in order:
+        eps[src].isend(xs[src], dest=4, tag=tag)
+    for src, tag in order:
+        req = eps[4].irecv(source=-1, tag=-1)
+        st = req.wait()
+        if (st.source, st.tag, st.count) != (src, tag, P2P_EAGER):
+            raise AssertionError(f"ANY_SOURCE/ANY_TAG: {st}")
+        same(req.result(), xs[src], f"ANY_SOURCE from {src}")
+    eps[2].isend(xs[2], dest=7, tag=11)
+    msg = tcomm.improbe(source=-1, tag=-1, dest=7)
+    if msg is None or msg.status.source != 2 or \
+            tcomm.iprobe(source=-1, tag=-1, dest=7) is not None:
+        raise AssertionError("improbe did not take the message")
+    same(msg.mrecv(), xs[2], "improbe/mrecv")
+    psend = tcomm.send_init(xs[1], dest=6, tag=5, source=1)
+    precv = tcomm.recv_init(source=1, tag=5, dest=6)
+    for start in range(2):
+        if start:
+            psend.bind(xs[5])
+        start_all([precv, psend])
+        psend.wait()
+        same(precv.result(), xs[5 if start else 1], f"persistent {start}")
+        own_storage(precv.result(), *xs, what=f"persistent {start}")
+    log(f"[main] p2p on the card: an eager ring at {P2P_EAGER} B (senders' "
+        f"buffers written after completion), self sends at {P2P_EAGER} and "
+        f"{P2P_RNDV} B, ANY_SOURCE/ANY_TAG in arrival order, improbe/mrecv, "
+        f"persistent send/recv started twice: each bitwise its CPU copy, "
+        f"in storage of its own")
+    rndv0 = SPC.read("pml_rndv_sends")
+    big = random_rank_major((P2P_RNDV // 4,), torch.float32, gen)
+    hbig = big.to("cpu", copy=True)
+    sreq = eps[0].isend(big, dest=5, tag=3)
+    if sreq.done or SPC.read("pml_rndv_sends") != rndv0 + 1:
+        raise AssertionError("1 GiB send did not take the rendezvous")
+    got = eps[5].recv(source=0, tag=3)
+    if not sreq.done:
+        raise AssertionError("rendezvous send not complete at the match")
+    big.neg_()
+    same(got, hbig, "rendezvous 1 GiB")
+    own_storage(got, big, what="rendezvous 1 GiB")
+    del got, hbig
+    def rendezvous():
+        eps[0].isend(big, dest=5, tag=4)
+        return eps[5].recv(source=0, tag=4)
+
+    ms = event_ms({"rendezvous": rendezvous, "clone": big.clone}, P2P_TIMED)
+    bound = 2 * P2P_RNDV / HBM_BYTES_PER_S * 1e3
+    out = {"rendezvous_gib_ms": statistics.median(ms["rendezvous"]),
+           "clone_gib_ms": statistics.median(ms["clone"]),
+           "rendezvous_gib_bound_ms": bound}
+    log(f"[main] p2p rendezvous at {P2P_RNDV} B (isend, recv and its "
+        f"event) by CUDA events, {P2P_TIMED} in turns with x.clone(): "
+        + "; ".join(f"{k} p50 {statistics.median(v):.4f} ms, min "
+                    f"{min(v):.4f}" for k, v in ms.items())
+        + f"; bound 2 B / 3.35 TB/s {bound:.4f} ms")
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
+def nbc_input(entry, nbytes, gen):
+    import torch
+
+    row = nbytes // 4
+    shape = (N, N, row // N) if entry in ("ialltoall",
+                                          "ireduce_scatter_block") \
+        else (N, row)
+    return random_rank_major(shape, torch.float32, gen)
+
+
+def nbc_vs_blocking(entry, got, want, x) -> None:
+    """A SUM within ``SUM_RTOL`` of sum |x| per element of the blocking
+    call (the algorithms differ); every other op bitwise."""
+    import torch
+
+    if NBC_CASES[entry][1][:1] != ("sum",):
+        same(got, want, f"nbc {entry} vs blocking")
+        return
+    if got.shape != want.shape:
+        raise AssertionError(f"nbc {entry}: shape {tuple(got.shape)}")
+    err = (got.double() - want.double()).abs()
+    mag = x.abs().double()
+    if entry == "iexscan":  # rank r sums ranks 0..r-1
+        mag = mag.cumsum(0)
+        scale = torch.cat([torch.zeros_like(mag[:1]), mag[:-1]])
+    else:  # each result sums one block of every rank
+        scale = mag.sum(0).expand_as(err)
+    if bool((err > SUM_RTOL * scale).any()):
+        raise AssertionError(f"nbc {entry}: SUM beyond {SUM_RTOL} of sum|x|")
+
+
+def nbc_checks(tcomm, gen) -> dict:
+    """Every ``nbc.i*`` at 64 MiB and 4 KiB per rank on the card: bitwise
+    the same schedule run on a CPU copy of the input and its own second
+    run (the one timed, host wall from start to result), and against the
+    blocking call through TunedColl (a SUM to ``SUM_RTOL``, every other
+    op bitwise); then three schedules started together and completed
+    out of order, each bitwise its run alone."""
+    import torch
+    from ompi_tpu_torch.communicator import Communicator
+    from ompi_tpu_torch.coll import nbc
+    from ompi_tpu_torch.group import Group
+    from ompi_tpu_torch.runtime import mesh
+
+    cpu = Communicator(Group(range(N)),
+                       mesh.discover(N, torch.device("cpu")), name="CPU")
+    wall = {}
+    for nbytes in NBC_SIZES:
+        for entry, (blocking, args) in NBC_CASES.items():
+            x = None if entry == "ibarrier" else nbc_input(entry, nbytes,
+                                                           gen)
+            call = () if x is None else (x,)
+            got = getattr(nbc, entry)(tcomm, *call, *args).result()
+            # timed warm: the first call also loads the op's CUDA code
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = getattr(nbc, entry)(tcomm, *call, *args).result()
+            wall[f"{entry}_{nbytes}"] = (time.perf_counter() - t0) * 1e3
+            same(again, got, f"nbc {entry} {nbytes} B/rank run twice")
+            ref = getattr(nbc, entry)(cpu, *(v.cpu() for v in call),
+                                      *args).result()
+            same(got, ref, f"nbc {entry} {nbytes} B/rank vs the CPU")
+            if entry == "ibarrier":
+                tcomm.barrier()
+            else:
+                nbc_vs_blocking(entry, got, getattr(tcomm, blocking)(
+                    x, *args), x)
+            del x, got, again, ref
+        log(f"[main] nbc at {nbytes} B/rank: every entry point bitwise the "
+            f"CPU schedule and its own second run, SUM within {SUM_RTOL} of "
+            f"sum|x| of the blocking call and every other op bitwise; host "
+            f"ms start to result of the second run: "
+            + ", ".join(f"{e} {wall[f'{e}_{nbytes}']:.1f}"
+                        for e in NBC_CASES))
+    xs = [nbc_input("iallreduce", NBC_SIZES[0], gen) for _ in range(3)]
+    alone = [nbc.iallreduce(tcomm, xs[0], "sum").result(),
+             nbc.ibcast(tcomm, xs[1], 2).result(),
+             nbc.iallgather(tcomm, xs[2]).result()]
+    reqs = [nbc.iallreduce(tcomm, xs[0], "sum"),
+            nbc.ibcast(tcomm, xs[1], 2), nbc.iallgather(tcomm, xs[2])]
+    for i in (2, 0, 1):
+        reqs[i].wait()
+    for i, req in enumerate(reqs):
+        same(req.result(), alone[i], f"nbc started together {i}")
+    log(f"[main] nbc iallreduce, ibcast and iallgather at {NBC_SIZES[0]} "
+        f"B/rank started together, completed out of order (2, 0, 1): each "
+        f"bitwise its run alone")
+    cpu.free()
+    del xs, alone, reqs
+    torch.cuda.empty_cache()
+    return {"nbc_host_ms": wall}
+
+
+def p2p_path(pcomm, tcomm, counters, gen) -> dict:
+    """The p2p/nonblocking path; prints its times on a ``p2p_nbc`` JSON
+    line and checks its peak memory. Raises on any disagreement; returns
+    no kernel errors (the kernels' are their checks')."""
+    import torch
+
+    log(f"[main] p2p/nonblocking path: peak device memory reckoned "
+        f"{P2P_PEAK_RECKONED:.0f} B (limit {P2P_PEAK_LIMIT:.0f})")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    icoll_checks(pcomm, tcomm, counters, gen)
+    times = p2p_checks(tcomm, gen)  # also the p2p stack's first use
+    times.update(iallreduce_gib(pcomm, tcomm, counters, gen))
+    times.update(nbc_checks(tcomm, gen))
+    peak = torch.cuda.max_memory_allocated()
+    print(json.dumps({"p2p_nbc": times}), flush=True)
+    log(f"[main] p2p/nonblocking path {time.time() - t0:.1f} s, peak "
+        f"device memory {peak} B")
+    if peak > P2P_PEAK_LIMIT:
+        raise AssertionError(f"p2p path peak {peak} B")
+    return {}
+
+
 def main_path(tt, pr, config) -> tuple[dict, dict]:
     """Both vtable routes at full size, path by path; returns (kernel ->
     max error, kernel -> launches on its path)."""
@@ -2379,6 +2764,7 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
         (("ppermute_shift",), lambda: hop_path(counters, gen)),
         (SURFACE_KERNELS, lambda: surface_path(world, pcomm, tcomm, config,
                                                counters, gen)),
+        (SURFACE_KERNELS, lambda: p2p_path(pcomm, tcomm, counters, gen)),
     )
     errs, launches = {}, {}
     for kernels, drive in paths:

@@ -11,7 +11,11 @@ CUDA counterparts of the Pallas ring and tree kernels
 collective surface (scan, exscan, barrier, the ragged and neighborhood
 variants, the persistent ``*_init`` forms completing on CUDA events)
 runs through the same vtable, and ``tools/imb.py`` sweeps it in
-IMB-MPI1 style.
+IMB-MPI1 style. The nonblocking ``i*`` forms are the blocking dispatch
+completing on a CUDA event; point-to-point (``comm.send``/``recv``/
+``isend``/``irecv``, ``comm.rank(r)``) runs ob1 matching over the
+in-process BTLs (``pml/``, ``btl/``), and ``coll.nbc``'s libnbc-style
+round schedules run over it; ``datatype/`` packs derived layouts.
 
 Rules of the port:
 

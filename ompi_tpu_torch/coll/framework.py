@@ -13,8 +13,9 @@ its first ``start()`` resolves the dispatch once (the component's
 ``persistent_program``, else the component's method), and every start
 after that is that dispatch alone. It completes on a CUDA event recorded
 on the current stream right after the dispatch; on the CPU it completes
-at once. The nonblocking ``i*`` collectives (``DeviceRequest``) come
-with the nonblocking slice.
+at once. ``DeviceRequest`` is a nonblocking ``i*`` collective: the
+blocking dispatch enqueued the work, and the request completes on the
+CUDA event recorded after it (at once on the CPU).
 """
 
 from __future__ import annotations
@@ -143,8 +144,37 @@ def record_completion(result: Any) -> Optional["torch.cuda.Event"]:
 
 
 # ---------------------------------------------------------------------------
-# Persistent requests
+# Requests
 # ---------------------------------------------------------------------------
+
+class DeviceRequest(Request):
+    """A nonblocking collective: the device work is already enqueued on
+    the current stream; completion is the CUDA event recorded after it
+    (``_poll`` queries it, ``wait()`` synchronizes it)."""
+
+    def __init__(self, result: Any) -> None:
+        super().__init__()
+        self._pending = result
+        self._event = record_completion(result)
+        if self._event is None:
+            self._complete(result)
+
+    def _poll(self) -> bool:
+        if self.done:
+            return True
+        if self._event.query():
+            self._complete(self._pending)
+        return self.done
+
+    def wait(self, timeout: float | None = None) -> Status:
+        if not self.done:
+            if timeout is None:
+                self._event.synchronize()
+                self._complete(self._pending)
+            elif not _progress.ENGINE.progress_until(self._poll, timeout):
+                raise TimeoutError("collective wait timed out")
+        return self.status
+
 
 class PersistentColl(Request):
     """Persistent collective (MPI_Allreduce_init / pcollreq extension):

@@ -6,9 +6,14 @@ allgather, reduce_scatter_block, alltoall, gather, scatter, scan,
 exscan, barrier, the ragged variants and the neighborhood collectives),
 the persistent ``*_init`` forms and ``start_all``, ``check_rank``,
 ``dup``, ``create``, ``split``, ``set_name``, ``info``, attributes and
-the errhandler, the plan cache, the cid counter and ``_check_alive``.
-Point-to-point, the nonblocking ``i*`` forms and partitioned requests
-come with their slices; epochs and revocation with fault tolerance.
+the errhandler, the plan cache, the cid counter and ``_check_alive``;
+the nonblocking ``i*`` collectives (``DeviceRequest``s completing on
+the CUDA event recorded after the blocking dispatch); point-to-point
+through the selected PML (``send``/``recv``/``isend``/``irecv``,
+``probe``/``iprobe``/``improbe``, the persistent ``send_init``/
+``recv_init``, ``start_all``) and ``RankEndpoint``, a rank's view with
+the MPI call signatures. Partitioned requests come with their slice;
+epochs and revocation with fault tolerance.
 
 Buffer convention ("rank-major"): a collective argument is a contiguous
 ``(size, ...)`` tensor on the communicator's device whose leading axis
@@ -37,6 +42,8 @@ from .core.attributes import HasAttributes
 from .core.counters import SPC
 from .core.errors import ArgumentError, CommError, HasErrhandler, RankError
 from .core.info import Info
+from .core.request import Request, RequestState
+from .core.tree import map_leaves
 from .group import Group
 
 _cid_counter = itertools.count(0)
@@ -73,6 +80,7 @@ class Communicator(HasAttributes, HasErrhandler):
         self.device = world_procs[0].device
         self._plan_cache: dict[tuple, Any] = {}
         self._coll: dict[str, tuple[Any, Any]] = {}
+        self._pml = None
         self.topo = None  # attached by topo (cart/graph/dist_graph)
         self._select_frameworks()
         live_comms.add(self)
@@ -209,6 +217,58 @@ class Communicator(HasAttributes, HasErrhandler):
     def neighbor_alltoall(self, sendblocks):
         return self._coll_call("neighbor_alltoall", sendblocks)
 
+    # Nonblocking variants: the blocking dispatch enqueues the device
+    # work; the request completes on the CUDA event recorded after it.
+    def _icoll(self, opname: str, *args, **kw):
+        from .coll.framework import DeviceRequest
+
+        return DeviceRequest(self._coll_call(opname, *args, **kw))
+
+    def iallreduce(self, x, op="sum"):
+        return self._icoll("allreduce", x, op)
+
+    def ibcast(self, x, root: int = 0):
+        return self._icoll("bcast", x, self.check_rank(root))
+
+    def ireduce(self, x, op="sum", root: int = 0):
+        return self._icoll("reduce", x, op, self.check_rank(root))
+
+    def iallgather(self, x):
+        return self._icoll("allgather", x)
+
+    def ireduce_scatter_block(self, x, op="sum"):
+        return self._icoll("reduce_scatter_block", x, op)
+
+    def ialltoall(self, x):
+        return self._icoll("alltoall", x)
+
+    def igather(self, x, root: int = 0):
+        return self._icoll("gather", x, self.check_rank(root))
+
+    def iscatter(self, x, root: int = 0):
+        return self._icoll("scatter", x, self.check_rank(root))
+
+    def iscan(self, x, op="sum"):
+        return self._icoll("scan", x, op)
+
+    def ibarrier(self):
+        return self._icoll("barrier")
+
+    def iallgatherv(self, values):
+        return self._icoll("allgatherv", list(values))
+
+    def ialltoallv(self, blocks):
+        return self._icoll("alltoallv", [list(b) for b in blocks])
+
+    def ireduce_scatter(self, values, counts, op="sum"):
+        return self._icoll("reduce_scatter", list(values), list(counts), op)
+
+    def ineighbor_allgather(self, x):
+        return self._icoll("neighbor_allgather", x)
+
+    def ineighbor_alltoall(self, sendblocks):
+        return self._icoll("neighbor_alltoall", sendblocks)
+
     # Persistent collectives (MPI-4 *_init; reference: the operation table
     # of coll_base_functions.h:45-66 and ompi/mpiext/pcollreq): start()
     # re-dispatches the program resolved on the first start against the
@@ -275,6 +335,66 @@ class Communicator(HasAttributes, HasErrhandler):
     def neighbor_alltoall_init(self, sendblocks):
         return self._pinit("neighbor_alltoall", sendblocks)
 
+    # Persistent p2p (MPI_Send_init / MPI_Recv_init, reference pml.h:292
+    # `pml_isend_init`): binds the envelope once; each start() re-issues
+    # through the selected PML against the currently bound buffer.
+    def send_init(self, value, dest: int, tag: int = 0, *, source=None):
+        return PersistentSend(
+            self, value, self.check_rank(dest), tag, source
+        )
+
+    def recv_init(self, source: int = -1, tag: int = -1, *, dest: int):
+        return PersistentRecv(self, source, tag, dest)
+
+    # -- p2p (delegated to the selected PML) ------------------------------
+
+    @property
+    def pml(self):
+        if self._pml is None:
+            from .pml.framework import select_for_comm as pml_select
+
+            self._pml = pml_select(self)
+        return self._pml
+
+    def send(self, value, dest: int, tag: int = 0, *, source=None):
+        """Send ``value`` to rank ``dest`` from rank ``source`` (needed
+        unless the comm has one rank: every rank shares the device)."""
+        self._check_alive()
+        return self.pml.send(
+            self, value, self.check_rank(dest), tag, source=source
+        )
+
+    def recv(self, source: int = -1, tag: int = -1, *, dest: int):
+        self._check_alive()
+        return self.pml.recv(self, source, tag, dest=dest)
+
+    def isend(self, value, dest: int, tag: int = 0, *, source=None):
+        self._check_alive()
+        return self.pml.isend(
+            self, value, self.check_rank(dest), tag, source=source
+        )
+
+    def irecv(self, source: int = -1, tag: int = -1, *, dest: int):
+        self._check_alive()
+        return self.pml.irecv(self, source, tag, dest=dest)
+
+    def probe(self, source: int = -1, tag: int = -1, *, dest: int):
+        self._check_alive()
+        return self.pml.probe(self, source, tag, dest=dest, blocking=True)
+
+    def iprobe(self, source: int = -1, tag: int = -1, *, dest: int):
+        self._check_alive()
+        return self.pml.probe(self, source, tag, dest=dest, blocking=False)
+
+    def improbe(self, source: int = -1, tag: int = -1, *, dest: int):
+        """MPI_Improbe: match-and-remove; returns a Message or None."""
+        self._check_alive()
+        return self.pml.improbe(self, source, tag, dest=dest)
+
+    def rank(self, rank: int) -> "RankEndpoint":
+        """A rank's-eye view with the MPI-faithful call signatures."""
+        return RankEndpoint(self, self.check_rank(rank))
+
     # -- construction of derived communicators ----------------------------
 
     def dup(self, info: Optional[Info] = None) -> "Communicator":
@@ -334,6 +454,8 @@ class Communicator(HasAttributes, HasErrhandler):
     def free(self) -> None:
         self.free_attrs()
         self._plan_cache.clear()
+        if self._pml is not None:
+            self._pml.comm_freed(self)
         self._freed = True
 
     def set_name(self, name: str) -> None:
@@ -346,6 +468,124 @@ class Communicator(HasAttributes, HasErrhandler):
         )
 
 
+class _PersistentP2P(Request):
+    """Shared machinery: a persistent request owning an inner active
+    request per start() (reference: ob1 persistent requests re-enter
+    the start path, pml_ob1_start.c)."""
+
+    def __init__(self, comm) -> None:
+        super().__init__(persistent=True)
+        self._comm = comm
+        self._inner = None
+
+    def _poll(self) -> bool:
+        if self.done:
+            return True
+        inner = self._inner
+        if inner is not None and inner._poll():
+            self._complete(inner._result, inner.status)
+        return self.done
+
+    def wait(self, timeout: float | None = None):
+        inner = self._inner
+        if inner is None or self.state == RequestState.INACTIVE:
+            # base wait: raises on inactive persistent requests
+            return super().wait(timeout)
+        if not self.done:
+            inner.wait(timeout)
+            self._poll()
+        if self.status.error is not None:
+            raise self.status.error
+        return self.status
+
+
+class PersistentSend(_PersistentP2P):
+    def __init__(self, comm, value, dest, tag, source) -> None:
+        super().__init__(comm)
+        self.buffer = value
+        self._dest = dest
+        self._tag = tag
+        self._source = source
+
+    def bind(self, value) -> None:
+        """Rebind the send buffer for the next start()."""
+        self.buffer = value
+
+    def _start(self) -> None:
+        self._inner = self._comm.isend(
+            self.buffer, self._dest, self._tag, source=self._source
+        )
+
+
+class PersistentRecv(_PersistentP2P):
+    def __init__(self, comm, source, tag, dest) -> None:
+        super().__init__(comm)
+        self._source = source
+        self._tag = tag
+        self._dest = dest
+
+    def _start(self) -> None:
+        self._inner = self._comm.irecv(
+            self._source, self._tag, dest=self._dest
+        )
+
+
 def start_all(requests) -> list:
-    """MPI_Startall: start every request in order."""
+    """MPI_Startall: start every request in order (the port has no
+    cross-process fabric whose dispatches a batch could coalesce)."""
     return [r.start() for r in requests]
+
+
+class RankEndpoint:
+    """One rank's view of a communicator: MPI-faithful p2p signatures
+    (send(value, dest, tag) / recv(source, tag)) with the endpoint's rank
+    as the implicit source/destination — the single-controller
+    equivalent of "my rank" inside an SPMD process."""
+
+    def __init__(self, comm: Communicator, rank: int) -> None:
+        self.comm = comm
+        self.rank = rank
+
+    @property
+    def device(self) -> torch.device:
+        return self.comm.device
+
+    def send(self, value, dest: int, tag: int = 0):
+        return self.comm.send(value, dest, tag, source=self.rank)
+
+    def isend(self, value, dest: int, tag: int = 0):
+        return self.comm.isend(value, dest, tag, source=self.rank)
+
+    def recv(self, source: int = -1, tag: int = -1):
+        return self.comm.recv(source, tag, dest=self.rank)
+
+    def irecv(self, source: int = -1, tag: int = -1):
+        return self.comm.irecv(source, tag, dest=self.rank)
+
+    def probe(self, source: int = -1, tag: int = -1):
+        return self.comm.probe(source, tag, dest=self.rank)
+
+    def iprobe(self, source: int = -1, tag: int = -1):
+        return self.comm.iprobe(source, tag, dest=self.rank)
+
+    def sendrecv(self, value, dest: int, source: int = -1, tag: int = 0):
+        req = self.isend(value, dest, tag)
+        out = self.recv(source, tag)
+        req.wait()
+        return out
+
+    def put(self, value):
+        """Place a value (a tensor, numpy array or scalar, or nested
+        tuples, lists and dicts of them) on the comm's device: a tensor
+        already there is itself, anything else a new tensor."""
+        dev = self.comm.device
+
+        def one(leaf):
+            if isinstance(leaf, torch.Tensor):
+                return leaf.to(dev)
+            return torch.tensor(leaf, device=dev)
+
+        return map_leaves(one, value)
+
+    def __repr__(self) -> str:
+        return f"<RankEndpoint {self.comm.name}:{self.rank}>"

@@ -28,6 +28,16 @@ class ArgumentError(OmpiTpuError, ValueError):
     errclass = "ERR_ARG"
 
 
+class DatatypeError(OmpiTpuError):
+    errclass = "ERR_TYPE"
+
+
+class TruncationError(OmpiTpuError):
+    """Receive buffer too small (MPI_ERR_TRUNCATE)."""
+
+    errclass = "ERR_TRUNCATE"
+
+
 class CommError(OmpiTpuError):
     errclass = "ERR_COMM"
 
@@ -38,6 +48,10 @@ class GroupError(OmpiTpuError):
 
 class RankError(OmpiTpuError):
     errclass = "ERR_RANK"
+
+
+class TagError(OmpiTpuError):
+    errclass = "ERR_TAG"
 
 
 class OpError(OmpiTpuError):

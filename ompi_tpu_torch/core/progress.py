@@ -75,6 +75,13 @@ class ProgressEngine:
             events += fn()
         return events
 
+    def notify_completion(self) -> None:
+        """A request completed (called from ``Request._complete``, the
+        wait_sync 'signal' side). The port's waiters never park:
+        ``progress_until`` sweeps and yields, so there is no one to wake
+        yet. Parking on a transport's doorbell, and this wake with it,
+        come with the first transport that parks."""
+
     def progress_until(
         self,
         predicate: Callable[[], bool],

@@ -9,10 +9,13 @@ pml.h:292): ``Status``, ``RequestState``, ``Request``,
 A request completes either at creation (``CompletedRequest``) or when
 its ``_poll`` sees its work finished; ``wait`` drives the progress
 engine until then. A collective's request (``coll.framework
-.PersistentColl``) polls the CUDA event recorded after its dispatch.
-Partitioned requests come with the partitioned-communication slice; the
-peruse and memchecker hooks of ``_complete`` and the sanitizer's
-tracker with the analysis tools.
+.PersistentColl``, ``DeviceRequest``) and a point-to-point receive
+(``pml.ob1.RecvRequest``) hold the CUDA event recorded after their
+work. ``_complete`` wakes the progress engine, fires peruse's
+``REQ_COMPLETE`` and marks the result defined for the memchecker, as
+the JAX package's does. Partitioned requests come with the
+partitioned-communication slice; the sanitizer's tracker with the
+analysis tools.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import enum
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
 
+from . import memchecker, peruse
 from . import progress as _progress
 from .errors import RequestError
 
@@ -79,6 +83,10 @@ class Request:
         if status is not None:
             self.status = status
         self.state = RequestState.COMPLETE
+        _progress.ENGINE.notify_completion()  # wake sleeping waiters
+        peruse.fire(peruse.PeruseEvent.REQ_COMPLETE, request=self)
+        if result is not None:
+            memchecker.mark_defined(result)
         for cb in self._callbacks:
             cb(self)
 
