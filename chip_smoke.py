@@ -53,7 +53,9 @@ Phases (any failure raises and exits non-zero):
    scatter for the three dtypes (gather, scatter and bcast at roots 0
    and n-1; the allgather also with one stripe over 41 segments and with
    the plan's stripes at n in {3, 8}, its buffers in a cluster's shared
-   memory and in L2, and at n = 12 in L2), the chunked ring likewise (one
+   memory and in L2, and at n = 12 in L2), the tree bcast for uint8,
+   int8, float16 and float64 at odd row widths (n in {2, 3, 8}, roots 0
+   and n-1), the chunked ring likewise (one
    stripe and the plan's over 41 segments, at n in {3, 8} in either
    memory and at n = 12 in L2, every op and dtype), and the three data
    movers and the allgather for float64, float16 and int8 at odd row
@@ -98,10 +100,10 @@ Phases (any failure raises and exits non-zero):
    two vtable routes: a ``world.dup()`` with
    ``coll_pallas_priority=100`` (PallasColl) and one with TunedColl and
    ``coll_tuned_<op>_algorithm`` forcing each kernel's name. It runs as
-   ten paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
+   eleven paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
    bidirectional ring; alltoall/gather/scatter; the schedule compiler;
    the quantized wire; ring attention; the ring hop; the surface;
-   point-to-point and the nonblocking collectives);
+   point-to-point and the nonblocking collectives; the training step);
    the launch counters are zeroed just before each path and read just
    after it, every kernel of the path must have launched there, and
    every result must equal its plain version (the kernels line sums a
@@ -226,6 +228,28 @@ Phases (any failure raises and exits non-zero):
      sum |x| of the blocking call and every other op bitwise, and three
      schedules started together and completed out of order; its times
      on a ``p2p_nbc`` JSON line, its peak (reckoned ~26 GB) under 40 GB.
+   - the training step: one decoder layer of Llama-2-7B at full width
+     (``meta-llama/Llama-2-7b-hf``: the nine float32 gradient leaves of
+     hidden 4096, intermediate 11008; 202 383 360 elements a rank), from
+     a seed, on both routes: ``bucketer.allreduce_pytree`` on the
+     default 4 MiB buckets (194; each leaf within 1e-5 of ``x.sum(0)``,
+     three buckets bitwise the ring's plain version; on PallasColl also
+     at 16 MiB buckets, the chunked ring), a ``DpOverlapSession`` with
+     the default bucket and tile geometry for three steps and a
+     ``dp.window_session(window=2)`` for two steps and ``flush()``, the
+     marks replayed in the backward order ``grad_marker`` captured on the
+     card over a chain of the leaf names, each result within rtol 1e-4,
+     atol 1e-5 of ``x.sum(0)``, every stage and wire buffer and result on
+     the card and no ``.cpu()``/``.numpy()`` of a CUDA tensor while the
+     steps run; the session's fused table program (194 rings, 1552
+     chunks of 512 KiB) and a window's boundary over four rs_ag buckets
+     through ``sched_table``, bitwise its plain version; ``Psend_init``/
+     ``Precv_init`` of rank 0's ``gate_proj`` gradient to rank 1 in 64
+     partitions, ``Pready`` in a seeded random order with ``Parrived``
+     polled, bitwise the sent tensor; a ``train_step`` JSON line (each
+     item's host ms, the reports' ``overlap_pct`` and
+     ``exposed_comm_ms``, the peak reckoned, 9 G = 58.3 GB, and
+     measured, the card's name and power limit).
    Each case frees its input, output and plain result before the next;
    ``max_memory_allocated`` is printed for each path and for the whole
    main path.
@@ -298,6 +322,7 @@ Phases (any failure raises and exits non-zero):
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -683,6 +708,26 @@ def kernel_vs_plain(pr, gen) -> None:
     log(f"[kernel-vs-plain] data movers (and the allgather) at other "
         f"element sizes: {checked} "
         f"cases bitwise equal, all semaphores 0 ({time.time() - t0:.1f} s)")
+
+    # The tree bcast moves bytes too: its wrapper takes every element
+    # size its plain version takes (the training step's merged broadcast
+    # sends uint8), at odd row widths, roots 0 and n - 1.
+    t0 = time.time()
+    checked = 0
+    for dtype in (torch.uint8, torch.int8, torch.float16, torch.float64):
+        for n, elems in ((2, 33), (3, 1001), (8, 4099)):
+            x = random_rank_major((n, elems), dtype, gen)
+            for root in (0, n - 1):
+                got = pr.tree_bcast(x, root)
+                torch.cuda.synchronize()
+                check_sems(KERNELS["tree_bcast"])
+                equal_or_raise(got, pr.tree_bcast_plain(x, root),
+                               f"tree_bcast n={n} {dtype} elems={elems} "
+                               f"root={root}")
+                checked += 1
+    log(f"[kernel-vs-plain] tree_bcast for uint8, int8, float16 and "
+        f"float64 at odd row widths: {checked} cases bitwise equal, all "
+        f"semaphores 0 ({time.time() - t0:.1f} s)")
 
     # The scatter's pieces of 16 and 48 bytes on rows that are not whole
     # vectors and start off a row: the ragged head and tail of every
@@ -2721,6 +2766,379 @@ def p2p_path(pcomm, tcomm, counters, gen) -> dict:
     return {}
 
 
+# The training-step path: one decoder layer of Llama-2-7B at full width
+# (meta-llama/Llama-2-7b-hf: hidden 4096, intermediate 11008, 32 heads of
+# 128), its nine gradient leaves in float32 from a seed; the depth is cut
+# to one layer because every rank's copy lives in the one card's memory.
+TRAIN_LAYER = {  # leaf -> per-rank shape, in the layer's forward order
+    "input_layernorm": (4096,),
+    "q_proj": (4096, 4096), "k_proj": (4096, 4096),
+    "v_proj": (4096, 4096), "o_proj": (4096, 4096),
+    "post_attention_layernorm": (4096,),
+    "gate_proj": (11008, 4096), "up_proj": (11008, 4096),
+    "down_proj": (4096, 11008),
+}
+TRAIN_ELEMS = 202_383_360  # elements per rank
+TRAIN_BUCKETS = 194  # 4 MiB buckets (parallel_dp_bucket_bytes)
+TRAIN_STEPS = 3
+TRAIN_CHECKED_BUCKETS = (0, TRAIN_BUCKETS // 2, TRAIN_BUCKETS - 1)
+TRAIN_PARTITIONS = 64
+TRAIN_RAISED_BUCKET = 16 * MIB  # above PallasColl's 4 MiB whole-payload tier
+# Peak device memory in units of G, the rank-major gradients' bytes: the
+# window session holds the gradients (1), the staging slabs (1), each of
+# its two phases' peers' wire buffers, received payloads and reduced
+# locals (2 x (7/8 + 7/8 + 1/8)), the open step's float64 accumulators
+# (2/8), the first step's outputs (1) and the second tail's broadcast
+# output and reassembled buckets (2); the session and the bucketer less.
+TRAIN_PEAK_G = 1 + 1 + 2 * (7 / 8 + 7 / 8 + 1 / 8) + 2 / 8 + 1 + 2
+TRAIN_PEAK_LIMIT = 76e9
+TRAIN_KERNELS = ("tree_bcast", "ring_allreduce", "ring_allreduce_chunked",
+                 "sched_table")
+
+
+def no_host_copies():
+    """A context in which a copy of a CUDA tensor to the host raises:
+    ``.cpu()``, ``.numpy()``, ``.tolist()``, ``.item()``, ``float()``,
+    ``int()``, ``bool()``, ``np.asarray``, ``.to()`` a CPU target and
+    ``copy_`` into a CPU tensor. The training step's data path stays on
+    the card."""
+    import contextlib
+
+    import torch
+
+    def cpu_target(args, kwargs) -> bool:
+        for a in list(args) + [kwargs.get("device")]:
+            if isinstance(a, torch.Tensor):
+                return a.device.type == "cpu"
+            if isinstance(a, (str, torch.device)):
+                return torch.device(a).type == "cpu"
+        return False
+
+    def refuse_cuda(self, *args, **kwargs) -> bool:
+        return self.is_cuda
+
+    refused = {
+        "cpu": refuse_cuda, "numpy": refuse_cuda, "tolist": refuse_cuda,
+        "item": refuse_cuda, "__float__": refuse_cuda,
+        "__int__": refuse_cuda, "__index__": refuse_cuda,
+        "__bool__": refuse_cuda, "__array__": refuse_cuda,
+        "to": lambda self, *a, **k: self.is_cuda and cpu_target(a, k),
+        "copy_": lambda self, src, *a, **k: (
+            self.device.type == "cpu" and isinstance(src, torch.Tensor)
+            and src.is_cuda),
+    }
+
+    @contextlib.contextmanager
+    def guard():
+        saved = {m: getattr(torch.Tensor, m) for m in refused}
+
+        def wrap(name):
+            def call(self, *args, **kwargs):
+                if refused[name](self, *args, **kwargs):
+                    raise AssertionError(f"host copy {name} of a CUDA "
+                                         f"tensor on the step's data path")
+                return saved[name](self, *args, **kwargs)
+            return call
+
+        for name in saved:
+            setattr(torch.Tensor, name, wrap(name))
+        try:
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(torch.Tensor, name, fn)
+
+    return guard()
+
+
+def close_to_sum(out: dict, grads: dict, rtol: float, atol: float,
+                 what: str) -> float:
+    """Every leaf of ``out`` (rank-major, on the card) within rtol/atol of
+    its gradients' sum over the ranks, in every rank's row; returns the
+    largest |error|."""
+    import torch
+
+    worst = 0.0
+    for name, g in grads.items():
+        got = out[name]
+        if not got.is_cuda or got.shape != g.shape:
+            raise AssertionError(f"{what} {name}: {got.device} "
+                                 f"{tuple(got.shape)}")
+        ref = g.sum(0)
+        for r in range(g.shape[0]):
+            err = (got[r] - ref).abs()
+            bad = err > atol + rtol * ref.abs()
+            if bool(bad.any()) or not bool(torch.isfinite(got[r]).all()):
+                raise AssertionError(f"{what} {name} rank {r}: max error "
+                                     f"{float(err.max())}")
+            worst = max(worst, float(err.max()))
+    return worst
+
+
+def train_session(comm, grads, order, window: int, steps: int,
+                  what: str) -> dict:
+    """``steps`` training steps through a DP overlap session (window 1:
+    ``DpOverlapSession``; window 2: ``dp.window_session``, then
+    ``flush``), marks replayed in the captured backward order; checks
+    every result and where the session's tensors live."""
+    import torch
+    from ompi_tpu_torch.parallel import dp, overlap as ovl
+
+    t0 = time.time()
+    sess = (ovl.DpOverlapSession(comm, grads) if window == 1
+            else dp.window_session(comm, grads, window=window))
+    build_ms = (time.time() - t0) * 1e3
+    if len(sess.plan.buckets) != TRAIN_BUCKETS:
+        raise AssertionError(f"{what}: {len(sess.plan.buckets)} buckets")
+    bufs = sess.buffers()
+    if not all(b.is_cuda for b in bufs):
+        raise AssertionError(f"{what}: a stage or wire buffer off the card")
+    got = {"build_ms": build_ms, "step_ms": [], "overlap_pct": [],
+           "exposed_comm_ms": [], "tiles": sess.compiled.nodes[0].tiles,
+           "tile_bytes": sess.compiled.nodes[0].tile_bytes,
+           "stage_wire_bytes": sum(b.numel() * b.element_size()
+                                   for b in bufs)}
+    results = []
+    with no_host_copies():
+        for _ in range(steps):
+            t0 = time.time()
+            sess.begin_step()
+            for name in order:
+                sess.mark_ready(f"['{name}']", grads[name])
+            if window == 1:
+                results.append(sess.finish())
+                torch.cuda.synchronize()
+                got["step_ms"].append((time.time() - t0) * 1e3)
+            else:
+                sess.step()
+                got["step_ms"].append((time.time() - t0) * 1e3)
+        if window > 1:
+            t0 = time.time()
+            results = sess.flush()
+            torch.cuda.synchronize()
+            got["flush_ms"] = (time.time() - t0) * 1e3
+    for out, rep in results:
+        close_to_sum(out, grads, 1e-4, 1e-5, what)
+        got["overlap_pct"].append(rep.overlap_pct)
+        got["exposed_comm_ms"].append(rep.exposed_comm_ms)
+        if window > 1:
+            got.setdefault("tail_ms", []).append(rep.tail_ms)
+    got["fused"] = sess.compiled.fused
+    del sess, results
+    gc.collect()  # the session's buffers go before the next one's
+    return got
+
+
+def table_data(plan, leaves, members: int, chunk: int):
+    """(n, 8 * members, chunk) float32 input of a fused ring program over
+    the first ``members`` buckets: bucket b's payload, zero-padded to 8
+    chunks, in chunks [8 b, 8 b + 8)."""
+    import torch
+    from ompi_tpu_torch.parallel import bucketer
+
+    data = torch.zeros((N, N * members, chunk), device="cuda")
+    for b in range(members):
+        payload = bucketer.gather_bucket(leaves, plan[b % len(plan)])
+        data[:, N * b:N * (b + 1)].view(N, -1)[:, :payload.shape[1]] = \
+            payload
+    return data
+
+
+def train_tables(fused, plan, leaves, counters) -> dict:
+    """The step's fused table programs and a window's boundary through
+    ``sched_table`` at the path's bucket size, bitwise their plain
+    version, every flag back at 0."""
+    import torch
+    from ompi_tpu_torch.coll.sched import pallas_lower as pl
+    from ompi_tpu_torch.coll.sched import slipstream
+
+    chunk = 4 * MIB // 4 // N
+    times = {}
+    programs = [(f"step.fused_{op}", sched) for op, sched in fused.items()]
+    # rs_ag pairs with no consume deadlines: no allgather is elided, so
+    # the tail's allgathers fuse with the next step's reduce-scatters
+    window = slipstream.compile_window(
+        N, [(b.elems, b.dtype) for b in plan[:4]], node_choices=["rs_ag"] * 4,
+        ag_deadlines=[None] * 4)
+    if window.boundary is None:
+        raise AssertionError("window over rs_ag buckets has no boundary")
+    programs.append(("window.boundary", window.boundary))
+    for what, sched in programs:
+        data = table_data(plan, leaves, sched.nchunks // N, chunk)
+        # the program analyzed once on the host, its tables uploaded at
+        # the first launch; a second launch timed by events
+        t0 = time.time()
+        prog = pl.analyze(sched)
+        times[what + "_analyze_ms"] = (time.time() - t0) * 1e3
+        got = pl.sched_table(prog, data, "sum")
+        torch.cuda.synchronize()
+        check_sems(counters.KERNELS["sched_table"])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = pl.sched_table(prog, data, "sum")
+        end.record()
+        torch.cuda.synchronize()
+        times[what + "_ms"] = start.elapsed_time(end)
+        check_sems(counters.KERNELS["sched_table"])
+        equal_or_raise(again, got, f"sched_table {what} relaunched")
+        del again
+        t0 = time.time()
+        want = pl.sched_table_plain(prog, data, "sum")
+        equal_or_raise(got, want, f"sched_table {what} ({sched.nchunks} "
+                       f"chunks of {chunk * 4} B)")
+        log(f"[main] sched_table {what}: {sched.nchunks} chunks of "
+            f"{chunk * 4} B x {N} ranks bitwise its plain version "
+            f"({time.time() - t0:.1f} s plain); a launch "
+            f"{times[what + '_ms']:.3f} ms by events, the program's "
+            f"analysis {times[what + '_analyze_ms']:.1f} ms host")
+        del data, got, want
+        torch.cuda.empty_cache()
+    return times
+
+
+def train_partitioned(comm, grads) -> dict:
+    """Psend_init/Precv_init of rank 0's gate_proj gradient to rank 1 in
+    TRAIN_PARTITIONS partitions, Pready in a seeded random order with
+    Parrived polled after each, the result bitwise the sent tensor."""
+    import random
+
+    import torch
+    from ompi_tpu_torch.api import (Parrived, Pready, Precv_init,
+                                    Psend_init)
+
+    value = grads["gate_proj"][0].clone()
+    t0 = time.time()
+    sreq = Psend_init(comm, value, TRAIN_PARTITIONS, 1, 7, source=0)
+    rreq = Precv_init(comm, TRAIN_PARTITIONS, 0, 7, dest=1, like=value)
+    sreq.start()
+    rreq.start()
+    arrived = 0
+    with no_host_copies():
+        for p in random.Random(17).sample(range(TRAIN_PARTITIONS),
+                                          TRAIN_PARTITIONS):
+            Pready(sreq, p)
+            arrived = sum(Parrived(rreq, q) for q in range(TRAIN_PARTITIONS))
+        rreq.wait()
+        sreq.wait()
+    ms = (time.time() - t0) * 1e3
+    got = rreq.result()
+    if arrived != TRAIN_PARTITIONS or not got.is_cuda:
+        raise AssertionError(f"partitioned: {arrived} partitions arrived")
+    equal_or_raise(got, value, "Psend_init/Precv_init gate_proj")
+    log(f"[main] Psend_init/Precv_init of {value.numel() * 4} B in "
+        f"{TRAIN_PARTITIONS} partitions ({sreq._ntransfers} transfers), "
+        f"Pready in a random order: bitwise the sent tensor, {ms:.1f} ms")
+    return {"psend_precv_ms": ms, "transfers": sreq._ntransfers}
+
+
+def train_step_path(pcomm, tcomm, pr, counters) -> dict:
+    """The training-step path on both routes: the bucketer, the DP overlap
+    session (three steps), the slipstream window (two steps, flushed),
+    the fused table programs and a partitioned send of one gradient;
+    prints a ``train_step`` JSON line. Raises on any disagreement."""
+    import torch
+    from ompi_tpu_torch.core import tree
+    from ompi_tpu_torch.parallel import bucketer, overlap as ovl
+
+    G = TRAIN_ELEMS * 4 * N
+    log(f"[main] training-step path: one Llama-2-7B layer's gradients, "
+        f"{TRAIN_ELEMS} float32 a rank, {G} B rank-major; peak device "
+        f"memory reckoned {TRAIN_PEAK_G * G:.0f} B ({TRAIN_PEAK_G:.2f} G, "
+        f"limit {TRAIN_PEAK_LIMIT:.0f})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_path = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    grads = {name: torch.randn((N,) + shape, generator=gen, device="cuda")
+             for name, shape in TRAIN_LAYER.items()}
+    if sum(g.numel() for g in grads.values()) != TRAIN_ELEMS * N:
+        raise AssertionError("layer size")
+    # The backward order, captured on the card as bench.py captures it:
+    # layer i's marker fires once layer i's gradients are formed.
+    names = list(TRAIN_LAYER)
+    ovl.reset_capture()
+    ws = [torch.ones((), device="cuda", requires_grad=True) for _ in names]
+    h = torch.ones(4, device="cuda", requires_grad=True)
+    for i, name in enumerate(names):
+        h = torch.tanh(ovl.grad_marker(h, name) * ws[i])
+    h.sum().backward()
+    order = [n for n in ovl.backward_order() if n in grads]
+    if sorted(order) != sorted(names) or order[0] != names[-1]:
+        raise AssertionError(f"captured backward order {order}")
+
+    leaves, _ = tree.flatten(grads)
+    plan = bucketer.plan_buckets([leaf[0] for leaf in leaves])
+    if len(plan) != TRAIN_BUCKETS:
+        raise AssertionError(f"{len(plan)} buckets")
+    routes, fused = {}, None
+    for route, comm in (("pallas", pcomm), ("tuned", tcomm)):
+        got = {}
+        t0 = time.time()
+        with no_host_copies():
+            out = bucketer.allreduce_pytree(comm, grads)
+            torch.cuda.synchronize()
+        got["allreduce_pytree_ms"] = (time.time() - t0) * 1e3
+        got["allreduce_pytree_err"] = close_to_sum(
+            out, grads, 1e-5, 1e-5, f"{route} allreduce_pytree")
+        if route == "pallas":
+            out_leaves, _ = tree.flatten(out)
+            for b in TRAIN_CHECKED_BUCKETS:
+                want = pr.allreduce_block(
+                    bucketer.gather_bucket(leaves, plan[b]), "sum",
+                    ring=pr.ring_allreduce_plain)
+                equal_or_raise(bucketer.gather_bucket(out_leaves, plan[b]),
+                               want, f"allreduce_pytree bucket {b} vs the "
+                               f"ring's plain version")
+            del out_leaves, want
+        del out
+        if route == "pallas":
+            t0 = time.time()
+            with no_host_copies():
+                out = bucketer.allreduce_pytree(
+                    comm, grads, bucket_bytes=TRAIN_RAISED_BUCKET)
+                torch.cuda.synchronize()
+            got["allreduce_pytree_16mib_ms"] = (time.time() - t0) * 1e3
+            close_to_sum(out, grads, 1e-5, 1e-5, f"{route} 16 MiB buckets")
+            del out
+        sess = train_session(comm, grads, order, 1, TRAIN_STEPS,
+                             f"{route} session")
+        fused = sess.pop("fused")
+        got["session"] = sess
+        win = train_session(comm, grads, order, 2, 2, f"{route} window")
+        win.pop("fused")
+        got["window"] = win
+        torch.cuda.empty_cache()
+        routes[route] = got
+        log(f"[main] {route}: allreduce_pytree "
+            f"{got['allreduce_pytree_ms']:.1f} ms, session steps "
+            f"{[round(t, 1) for t in sess['step_ms']]} ms (overlap "
+            f"{[round(p, 1) for p in sess['overlap_pct']]} %, exposed "
+            f"{[round(e, 1) for e in sess['exposed_comm_ms']]} ms), window "
+            f"steps {[round(t, 1) for t in win['step_ms']]} ms + flush "
+            f"{win['flush_ms']:.1f} ms")
+    extra = train_tables(fused, plan, leaves, counters)
+    extra.update(train_partitioned(tcomm, grads))
+    for kernel in TRAIN_KERNELS:  # each kernel's last launch on the path
+        check_sems(counters.KERNELS[kernel])
+    peak = torch.cuda.max_memory_allocated()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"train_step": {
+        "card": smi.splitlines()[0], "layer": "Llama-2-7b-hf x 1 layer",
+        "elems_per_rank": TRAIN_ELEMS, "ranks": N, "buckets": len(plan),
+        "peak_bytes_reckoned": TRAIN_PEAK_G * G, "peak_bytes": peak,
+        "routes": routes, **extra,
+        "path_s": time.time() - t_path}}), flush=True)
+    log(f"[main] training-step path {time.time() - t_path:.1f} s, peak "
+        f"device memory {peak} B")
+    if peak > TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"training-step path peak {peak} B")
+    return {}
+
+
 def main_path(tt, pr, config) -> tuple[dict, dict]:
     """Both vtable routes at full size, path by path; returns (kernel ->
     max error, kernel -> launches on its path)."""
@@ -2765,6 +3183,8 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
         (SURFACE_KERNELS, lambda: surface_path(world, pcomm, tcomm, config,
                                                counters, gen)),
         (SURFACE_KERNELS, lambda: p2p_path(pcomm, tcomm, counters, gen)),
+        (TRAIN_KERNELS, lambda: train_step_path(pcomm, tcomm, pr,
+                                                counters)),
     )
     errs, launches = {}, {}
     for kernels, drive in paths:

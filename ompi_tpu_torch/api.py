@@ -3,7 +3,10 @@
 Port of ``ompi_tpu/api.py`` without the trace, health, telemetry and
 hook seams. ``init`` discovers n virtual ranks on one device (``cuda:0``
 unless the caller passes ``device="cpu"``) and builds COMM_WORLD and
-COMM_SELF, whose constructors run coll selection.
+COMM_SELF, whose constructors run coll selection. The MPI-4
+partitioned calls (``Psend_init``, ``Precv_init``, ``Pready``,
+``Pready_range``, ``Pready_list``, ``Parrived``) wrap the
+communicator's and the request's methods, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -67,6 +70,41 @@ def finalize() -> None:
             if not comm._freed:
                 comm.free()
         _state = None
+
+
+# -- MPI-4 partitioned communication (reference: ompi/mca/part) -------------
+
+def Psend_init(comm, value, partitions: int, dest: int, tag: int = 0, *,
+               source=None):
+    """MPI_Psend_init: a persistent partitioned send of ``value`` split
+    into ``partitions`` contiguous partitions."""
+    return comm.psend_init(value, partitions, dest, tag, source=source)
+
+
+def Precv_init(comm, partitions: int, source: int, tag: int = 0, *,
+               dest: int, like):
+    """MPI_Precv_init: ``like`` supplies the receive shape/dtype."""
+    return comm.precv_init(partitions, source, tag, dest=dest, like=like)
+
+
+def Pready(request, partition: int) -> None:
+    """MPI_Pready: mark one send partition filled (eager drain)."""
+    request.pready(partition)
+
+
+def Pready_range(request, lo: int, hi: int) -> None:
+    """MPI_Pready_range (inclusive bounds, matching the MPI binding)."""
+    request.pready_range(lo, hi)
+
+
+def Pready_list(request, partitions) -> None:
+    """MPI_Pready_list."""
+    request.pready_list(partitions)
+
+
+def Parrived(request, partition: int) -> bool:
+    """MPI_Parrived: poll one receive partition's completion."""
+    return request.parrived(partition)
 
 
 def world() -> Communicator:

@@ -119,27 +119,33 @@ def rank_major_check(comm, x, min_ndim: int = 1) -> torch.Tensor:
     return x
 
 
-def _on_card(result: Any) -> bool:
-    """Whether any tensor in ``result`` lies on a card: results nest
-    tuples, lists (``alltoallw``'s list of lists) and dicts (the neighbor
-    collectives' ``{rank: tensor}``)."""
+def _card_device(result: Any) -> Optional[torch.device]:
+    """The card of the first tensor in ``result`` that lies on one."""
     if isinstance(result, torch.Tensor):
-        return result.is_cuda
+        return result.device if result.is_cuda else None
     if isinstance(result, dict):
         result = result.values()
     elif not isinstance(result, (tuple, list)):
-        return False
-    return any(_on_card(leaf) for leaf in result)
+        return None
+    for leaf in result:
+        device = _card_device(leaf)
+        if device is not None:
+            return device
+    return None
 
 
 def record_completion(result: Any) -> Optional["torch.cuda.Event"]:
     """A CUDA event recorded on the current stream after the work that
     produces ``result``, or None when no tensor of it lies on a card (the
     CPU computed it already)."""
-    if not _on_card(result):
+    device = _card_device(result)
+    if device is None:
         return None
     event = torch.cuda.Event()
-    event.record()
+    # the stream named by its device: torch.cuda.current_stream() with no
+    # device first asks for the current device, a cost that shows at one
+    # event per point-to-point transfer
+    event.record(torch.cuda.current_stream(device.index))
     return event
 
 

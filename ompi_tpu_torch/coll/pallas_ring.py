@@ -2110,7 +2110,11 @@ def _bcast_launch(flat: torch.Tensor, root: int,
     ``defines`` names a probe build). ``TREE_BCAST.last_plan`` records
     what was launched."""
     n, L = flat.shape
-    _dtype_code(flat.dtype)
+    # The kernel copies bytes in 16-byte vectors: any element size that
+    # divides 16 is taken, as by the plain version (the merged broadcast
+    # of a training step sends uint8).
+    if 16 % flat.element_size():
+        raise ArgumentError(f"no tree_bcast for dtype {flat.dtype}")
     cap = require_kernel_device(flat)
     vec = 16 // flat.element_size()
     cols = -(-L // vec) * vec  # rows of whole 16-byte vectors

@@ -106,6 +106,12 @@ _min_bytes_var = _V(
                 "are dispatch-bound, not wire-bound)",
 )
 
+_ef_var = _V(
+    "error_feedback", type=bool, default=False,
+    description="Carry the quantization residual across calls "
+                "(opt-in; host-side state, see quant.ErrorFeedback)",
+)
+
 _INT8_LEVELS = 127.0
 
 QUANT = KernelCounter("quant_allreduce")
@@ -722,6 +728,10 @@ class ErrorFeedback:
         self.wire = wire
         self.block = block
         self.residual = None
+
+    @staticmethod
+    def enabled_by_config() -> bool:
+        return bool(_ef_var.value)
 
     def compensate(self, x: torch.Tensor) -> torch.Tensor:
         """Return the value to transmit for ``x`` (the wire roundtrip

@@ -20,8 +20,12 @@ cache (sched/cache.py). Two scoring modes (``coll_sched_autotune_mode``):
 
 Candidates whose transport tier the health ledger quarantines are
 never timed (``health.ledger`` is a seam in the port: nothing is
-quarantined yet). Not ported yet: ``program_*``, ``tune_step`` and
-``tune_residency``, the training-step choices (ROADMAP Queue 1 item 4).
+quarantined yet). The program tier (``program_tile_bytes``,
+``ag_elision_wins``, ``program_node_choice``, ``program_choices``,
+``tune_step``, ``tune_residency``) makes the training step's choices:
+per-bucket tile geometry, allreduce vs RS/AG vs shard residency, and
+the interleave, by the JAX package's coefficients, so both packages
+compile the same step program.
 """
 
 from __future__ import annotations
@@ -312,6 +316,294 @@ def tune(nranks: int, *, comm=None, opname: str = "allreduce",
     return out
 
 
+# ---------------------------------------------------------------------------
+# program-level choices (the step as the compilation unit)
+# ---------------------------------------------------------------------------
+
+SPC.counter(
+    "sched_program_tile_overrides_total",
+    "bucket tile geometries taken from the winner cache instead of "
+    "the static default when compiling a step program",
+)
+SPC.counter(
+    "sched_program_compiles_total",
+    "whole-step comm programs compiled",
+)
+SPC.counter(
+    "sched_window_spans_total",
+    "step-boundary window spans armed: a step's merged broadcast tail "
+    "dispatched past its own finish into the next step's window "
+    "(slipstream)",
+)
+SPC.counter(
+    "sched_ag_elided_total",
+    "allgather program nodes elided by shard residency (rs_resident): "
+    "the owner shard stays resident on the optimizer path and the next "
+    "forward reads it directly",
+)
+SPC.counter(
+    "sched_tail_overlap_ms",
+    "milliseconds of merged-broadcast tail execution hidden under the "
+    "next step's backward (slipstream window overlap)",
+    unit="ms",
+)
+
+#: Power-of-two tile-size sweep for the per-bucket geometry model.
+PROGRAM_TILE_CANDIDATES = (64 << 10, 128 << 10, 256 << 10, 512 << 10,
+                           1 << 20)
+
+#: The JAX package's coefficients, kept so that both packages compile
+#: the same step program and digest (fitting them on the card is later
+#: work, ROADMAP Queue 1 item 1).
+#: Per-tile dispatch cost vs per-byte tail-exposure cost (relative
+#: units, host transport): every tile pays a stage + Pready burst +
+#: drain sweep, while a larger final tile only lengthens the exposed
+#: tail — so the model leans toward few large tiles and the overlap
+#: granularity stays bucket-level.
+_PROG_TILE_A = 6000.0   # per tile
+_PROG_TILE_B = 0.02     # per byte of tile exposure
+
+#: RS/AG-vs-allreduce decision: gather-to-root pays one persistent
+#: pair per peer and the full bucket through the root's wire; the
+#: ZeRO-style split pays n× the pair setup but 1/n of the per-root
+#: wire. Crossover ~ _PROG_PAIR_GAMMA·n/_PROG_WIRE_BETA bytes.
+_PROG_PAIR_GAMMA = 4000.0  # per persistent pair armed per step
+_PROG_WIRE_BETA = 1e-3     # per bucket byte through one root
+
+#: Shard-residency (rs_resident) decision: eliding the allgather saves
+#: its full wire share, but the next forward must read the reduced
+#: shard from the resident owner (a host-local replication, _ETA per
+#: byte) and params consumed early in the forward can't hide that
+#: deferred read — _URGENCY decays with the consuming layer's distance
+#: (the node's ag_deadline).
+_PROG_RESIDENT_ETA = 2e-4      # per byte read from the resident owner
+_PROG_RESIDENT_URGENCY = 2000.0  # first-layer penalty, ~1/(1+deadline)
+
+
+def program_tile_bytes(nbytes: int, nranks: int, seed: int) -> int:
+    """Deterministic model winner for one bucket's tile size: argmin
+    over the power-of-two sweep of per-tile dispatch cost plus tail
+    exposure, seed-jittered for stable tie-breaks (crc32, not hash())."""
+    best, best_cost = PROGRAM_TILE_CANDIDATES[0], float("inf")
+    for t in PROGRAM_TILE_CANDIDATES:
+        tiles = max(1, -(-int(nbytes) // t))
+        cost = (_PROG_TILE_A * tiles + _PROG_TILE_B * min(t, nbytes)
+                + zlib.crc32(f"{seed}:tile:{t}".encode()) % 997 * 1e-9)
+        if cost < best_cost:
+            best, best_cost = t, cost
+    return best
+
+
+def ag_elision_wins(nbytes: int, nranks: int, seed: int,
+                    ag_deadline: int) -> bool:
+    """Shard-residency decision for one RS/AG pair: elide the allgather
+    when its wire share beats the resident-owner read plus the
+    consume-urgency penalty (seed-jittered tie-break, crc32 never
+    hash())."""
+    n = max(2, nranks)
+    ag_wire = _PROG_WIRE_BETA * nbytes * (n - 1) / n
+    read = _PROG_RESIDENT_ETA * nbytes
+    urgency = _PROG_RESIDENT_URGENCY / (1.0 + max(0, int(ag_deadline)))
+    jitter = (zlib.crc32(f"{seed}:res:{int(ag_deadline)}".encode())
+              % 997 * 1e-9)
+    return ag_wire > read + urgency + jitter
+
+
+def program_node_choice(nbytes: int, nranks: int, seed: int, *,
+                        ag_deadline: Optional[int] = None,
+                        resident: Optional[bool] = None) -> str:
+    """'allreduce' (gather-to-root + merged bcast) vs 'rs_ag' (ZeRO-
+    style reduce-scatter + allgather pair) for one bucket, by the
+    pair-setup/root-wire cost model.
+
+    With an ``ag_deadline`` (the step-N+1 forward layer that first
+    consumes this bucket) the pair choice may deepen into
+    'rs_resident': the allgather node is elided entirely and the next
+    forward reads the reduced shard from the resident owner (ZeRO-2/3).
+    ``resident`` pins a cache-learned residency decision (True forces
+    the elision, False forbids it, None lets the model decide)."""
+    n = max(2, nranks)
+    cost_ar = (_PROG_PAIR_GAMMA * (n - 1)
+               + _PROG_WIRE_BETA * nbytes * (n - 1)
+               + zlib.crc32(f"{seed}:ar".encode()) % 997 * 1e-9)
+    cost_rs = (_PROG_PAIR_GAMMA * n * (n - 1)
+               + _PROG_WIRE_BETA * nbytes * (n - 1) / n
+               + zlib.crc32(f"{seed}:rs".encode()) % 997 * 1e-9)
+    base = "allreduce" if cost_ar <= cost_rs else "rs_ag"
+    if nranks < 2:
+        return base
+    if resident is not None:
+        return "rs_resident" if resident else base
+    if (base == "rs_ag" and ag_deadline is not None
+            and ag_elision_wins(nbytes, nranks, seed, ag_deadline)):
+        return "rs_resident"
+    return base
+
+
+def program_choices(bucket_nbytes: Sequence[int], nranks: int, *,
+                    dtypes: Optional[Sequence] = None,
+                    seed: Optional[int] = None,
+                    topo_fp: Optional[str] = None,
+                    tile_bytes=None,
+                    node_choices: Optional[Sequence] = None,
+                    ag_deadlines: Optional[Sequence] = None) -> list:
+    """Program-level search for one training step: per bucket, the
+    tile geometry (caller > winner cache > model, in that precedence),
+    the RS/AG-vs-allreduce schedule decision, and the cross-bucket
+    interleave rank. Deterministic for a fixed (buckets, nranks, seed,
+    cache state) — these choices feed the program digest, so same-seed
+    controllers must compute byte-identical answers.
+
+    ``ag_deadlines`` (per bucket, None entries allowed) names the
+    step-N+1 forward layer that first consumes each bucket; with a
+    deadline known the pair choice may deepen into 'rs_resident' (AG
+    node elided, owner shard stays resident). Deadline and residency
+    follow the same precedence as tile geometry: caller > winner cache
+    (``ag_deadline`` / ``resident`` entry fields, carried through
+    bump/rollback like tile_bytes) > model. A caller-pinned 'rs_ag'
+    with a deadline still consults the residency model — pin
+    'rs_resident' or 'allreduce' to fix the choice outright.
+
+    Returns one dict per bucket: {"choice", "tile_bytes",
+    "tile_source", "interleave", "ag_deadline"} where interleave is the
+    bucket's arm position (biggest buckets first — their wire time is
+    the hardest to hide, so they enter the fabric earliest).
+    """
+    seed = _seed_var.value if seed is None else seed
+    if topo_fp is None:
+        topo_fp = fingerprint()
+    sizes = [int(b) for b in bucket_nbytes]
+    out: list[dict] = []
+    for i, nbytes in enumerate(sizes):
+        dtype = (dtypes[i] if dtypes is not None else "float32")
+        ent = _cache.CACHE.get(_cache.cache_key(
+            "allreduce", nbytes, nranks, dtype, topo_fp)) or {}
+        if tile_bytes is not None:
+            tb = (tile_bytes[i] if isinstance(tile_bytes, (list, tuple))
+                  else tile_bytes)
+            tb, src = int(tb), "caller"
+        elif ent.get("tile_bytes"):
+            tb, src = int(ent["tile_bytes"]), "cache"
+            SPC.record("sched_program_tile_overrides_total")
+        else:
+            tb, src = program_tile_bytes(nbytes, nranks, seed), "model"
+        dl = ag_deadlines[i] if ag_deadlines is not None else None
+        if dl is None and ent.get("ag_deadline") is not None:
+            dl = int(ent["ag_deadline"])
+        resident = ent.get("resident")
+        if resident is not None:
+            resident = bool(resident)
+        if node_choices is not None and node_choices[i]:
+            choice = str(node_choices[i])
+            if choice == "rs_ag" and nranks >= 2:
+                if resident is True:
+                    choice = "rs_resident"
+                elif (resident is None and dl is not None
+                        and ag_elision_wins(nbytes, nranks, seed, dl)):
+                    choice = "rs_resident"
+        else:
+            choice = program_node_choice(nbytes, nranks, seed,
+                                         ag_deadline=dl,
+                                         resident=resident)
+        out.append({"choice": choice, "tile_bytes": tb,
+                    "tile_source": src, "interleave": i,
+                    "ag_deadline": None if dl is None else int(dl)})
+    # Cross-bucket interleave: arm biggest-first, index as tie-break
+    # (stable and seed-independent so the order never fights the
+    # digest contract).
+    order = sorted(range(len(sizes)), key=lambda i: (-sizes[i], i))
+    for pos, i in enumerate(order):
+        out[i]["interleave"] = pos
+    return out
+
+
+def tune_step(nranks: int, bucket_nbytes: Sequence[int], *,
+              dtype="float32", seed: Optional[int] = None,
+              topo_fp: Optional[str] = None, save: bool = False) -> dict:
+    """Persist model-mode tile-geometry winners for a step's bucket
+    sizes into the winner cache (the program-level analog of tune()):
+    later compile_step calls on any same-seed controller pick these
+    entries up as 'cache'-sourced overrides. Existing algorithm
+    winners on a key are preserved (tile_bytes rides the entry)."""
+    from ...trace import span as tspan
+
+    seed = _seed_var.value if seed is None else seed
+    if topo_fp is None:
+        topo_fp = fingerprint()
+    keys = []
+    for nbytes in {int(b) for b in bucket_nbytes}:
+        key = _cache.cache_key("allreduce", nbytes, nranks, dtype,
+                               topo_fp)
+        tb = program_tile_bytes(nbytes, nranks, seed)
+        ent = _cache.CACHE.get(key)
+        if ent is None:
+            _cache.CACHE.put(key, "native", source="model",
+                             tile_bytes=tb)
+        else:
+            _cache.CACHE.put(
+                key, ent["algorithm"],
+                schedule=ent.get("schedule", ""),
+                source=ent.get("source", "model"),
+                tile_bytes=tb)
+        tspan.instant("sched.tune_step_tile", cat="sched", key=key,
+                      tile_bytes=tb, seed=seed)
+        keys.append(key)
+    out = {"keys": sorted(keys), "seed": seed, "topo_fp": topo_fp,
+           "digest": _cache.CACHE.digest(), "path": None}
+    if save and keys:
+        out["path"] = _cache.CACHE.save(
+            _cache.default_path(topo_fp, nranks))
+    return out
+
+
+def tune_residency(nranks: int, bucket_nbytes: Sequence[int],
+                   ag_deadlines: Sequence[int], *, dtype="float32",
+                   seed: Optional[int] = None,
+                   topo_fp: Optional[str] = None,
+                   save: bool = False) -> dict:
+    """Persist learned shard-residency decisions into the winner cache
+    (the slipstream analog of tune_step): for each bucket size, the
+    forward-consume deadline and the model's elide-the-AG verdict ride
+    the cache entry (``ag_deadline`` / ``resident``), so later
+    compile_step/compile_window calls on any same-seed controller
+    recover the same residency plan even when the caller passes no
+    deadlines. Existing algorithm winners and tile geometry on a key
+    are preserved."""
+    from ...trace import span as tspan
+
+    seed = _seed_var.value if seed is None else seed
+    if topo_fp is None:
+        topo_fp = fingerprint()
+    keys = []
+    for nbytes, dl in zip(bucket_nbytes, ag_deadlines):
+        nbytes, dl = int(nbytes), int(dl)
+        key = _cache.cache_key("allreduce", nbytes, nranks, dtype,
+                               topo_fp)
+        resident = (program_node_choice(nbytes, nranks, seed,
+                                        ag_deadline=dl)
+                    == "rs_resident")
+        ent = _cache.CACHE.get(key)
+        if ent is None:
+            _cache.CACHE.put(key, "native", source="model",
+                             ag_deadline=dl, resident=resident)
+        else:
+            _cache.CACHE.put(
+                key, ent["algorithm"],
+                schedule=ent.get("schedule", ""),
+                source=ent.get("source", "model"),
+                tile_bytes=ent.get("tile_bytes"),
+                ag_deadline=dl, resident=resident)
+        tspan.instant("sched.tune_residency", cat="sched", key=key,
+                      ag_deadline=dl, resident=resident, seed=seed)
+        keys.append(key)
+    out = {"keys": sorted(keys), "seed": seed, "topo_fp": topo_fp,
+           "digest": _cache.CACHE.digest(), "path": None}
+    if save and keys:
+        out["path"] = _cache.CACHE.save(
+            _cache.default_path(topo_fp, nranks))
+    return out
+
+
 #: sched_* algorithm name -> ir generator name.
 SCHED_GENERATOR = {
     "sched_ring": "ring",
@@ -360,6 +652,9 @@ def reset_fingerprint() -> None:
 
 
 __all__ = [
-    "DEFAULT_SIZES", "SCHED_GENERATOR", "candidates", "fingerprint",
-    "measure_cost", "model_cost", "reset_fingerprint", "tune",
+    "DEFAULT_SIZES", "PROGRAM_TILE_CANDIDATES", "SCHED_GENERATOR",
+    "ag_elision_wins", "candidates", "fingerprint", "measure_cost",
+    "model_cost", "program_choices", "program_node_choice",
+    "program_tile_bytes", "reset_fingerprint", "tune", "tune_residency",
+    "tune_step",
 ]

@@ -23,9 +23,11 @@ transition digest carries). A version-mismatched file is ignored (and
 counted), never migrated: stale schedules must lose to a fresh sweep,
 not be reinterpreted.
 
-What the port does not write yet: the retune plane's version bumps and
-rollbacks, the watchtower's baselines and the training step's tile and
-residency fields (ROADMAP Queue 1 items 4 and 9).
+An entry may carry the training step's fields, as the JAX package
+writes them: ``tile_bytes`` (``autotune.tune_step``), ``ag_deadline``
+and ``resident`` (``autotune.tune_residency``); they join the digest
+only when present. Not written yet: the retune plane's version bumps
+and rollbacks and the watchtower's baselines (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -122,9 +124,18 @@ class ScheduleCache:
 
     def put(self, key: str, algorithm: str, *, schedule: str = "",
             source: str = "autotune", tune_ms: Optional[float] = None,
-            score: Optional[float] = None) -> None:
+            score: Optional[float] = None,
+            tile_bytes: Optional[int] = None,
+            ag_deadline: Optional[int] = None,
+            resident: Optional[bool] = None) -> None:
         ent = {"algorithm": algorithm, "schedule": schedule,
                "source": source, "version": 1}
+        if tile_bytes is not None:
+            ent["tile_bytes"] = int(tile_bytes)
+        if ag_deadline is not None:
+            ent["ag_deadline"] = int(ag_deadline)
+        if resident is not None:
+            ent["resident"] = bool(resident)
         if tune_ms is not None:
             ent["tune_ms"] = round(float(tune_ms), 3)
         if score is not None:
@@ -165,7 +176,17 @@ class ScheduleCache:
                 "entries": {
                     k: {"algorithm": e["algorithm"],
                         "schedule": e.get("schedule", ""),
-                        "version": int(e.get("version", 1))}
+                        "version": int(e.get("version", 1)),
+                        # the training step's tile geometry and shard
+                        # residency change what executes: they join the
+                        # digest, only when present (so a cache without
+                        # them keeps its digest)
+                        **({"tile_bytes": int(e["tile_bytes"])}
+                           if "tile_bytes" in e else {}),
+                        **({"ag_deadline": int(e["ag_deadline"])}
+                           if "ag_deadline" in e else {}),
+                        **({"resident": bool(e["resident"])}
+                           if "resident" in e else {})}
                     for k, e in sorted(self._entries.items())
                 },
             }

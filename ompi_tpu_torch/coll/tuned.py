@@ -505,6 +505,40 @@ def decide_allreduce(op: Op, nbytes: int, nranks: int, dtype=None,
                                   rules)
 
 
+def allreduce_by_decision(x: torch.Tensor, op,
+                          allow_quant: Optional[bool] = None
+                          ) -> torch.Tensor:
+    """Allreduce of a rank-major ``(n, ...)`` tensor routed through the
+    same decision pipeline the comm vtable uses, without a communicator
+    (the JAX package's traced form, inside ``shard_map``, takes the
+    per-rank array and an axis name): how ``parallel.bucketer
+    .allreduce_tree`` gets tuned scheduling and the quant tier per
+    bucket. ``nbytes`` is bytes per rank. The JAX package routes the
+    name through its circuit breaker here; the breaker is not ported
+    yet (ROADMAP Queue 1 item 9), so the decision stands as made."""
+    from ..trace import span as tspan
+
+    op = op_lookup(op)
+    nranks = x.shape[0]
+    if nranks == 1:
+        return x
+    nbytes = (x.numel() // nranks) * x.element_size()
+    algo = decide_allreduce(op, nbytes, nranks, dtype=x.dtype,
+                            allow_quant=allow_quant)
+    fn = _algo(ALLREDUCE_ALGOS, "allreduce", algo)
+    SPC.record(f"coll_allreduce_algo_{algo}")
+    tspan.instant("tuned.tier", cat="coll", op="allreduce", algo=algo,
+                  nbytes=nbytes)
+    if is_quant_algo(algo) or algo == "sched_quant":
+        from . import quant
+
+        quant.record_wire_stats(nbytes, x.element_size())
+    if algo == "ring_segmented":
+        seg_elems = max(1, _seg_bytes.value // x.element_size())
+        return fn(x, op, segment_elems=seg_elems)
+    return fn(x, op)
+
+
 def decide_allgather(nbytes: int, nranks: int) -> str:
     forced = _force_allgather.value
     if forced:

@@ -11,9 +11,10 @@ the nonblocking ``i*`` collectives (``DeviceRequest``s completing on
 the CUDA event recorded after the blocking dispatch); point-to-point
 through the selected PML (``send``/``recv``/``isend``/``irecv``,
 ``probe``/``iprobe``/``improbe``, the persistent ``send_init``/
-``recv_init``, ``start_all``) and ``RankEndpoint``, a rank's view with
-the MPI call signatures. Partitioned requests come with their slice;
-epochs and revocation with fault tolerance.
+``recv_init``, ``start_all``), the partitioned ``psend_init``/
+``precv_init`` (the part framework) and ``RankEndpoint``, a rank's
+view with the MPI call signatures. Epochs and revocation come with
+fault tolerance.
 
 Buffer convention ("rank-major"): a collective argument is a contiguous
 ``(size, ...)`` tensor on the communicator's device whose leading axis
@@ -345,6 +346,34 @@ class Communicator(HasAttributes, HasErrhandler):
 
     def recv_init(self, source: int = -1, tag: int = -1, *, dest: int):
         return PersistentRecv(self, source, tag, dest)
+
+    # Partitioned p2p (MPI-4 MPI_Psend_init / MPI_Precv_init, reference
+    # ompi/mca/part): N user partitions of one buffer drain as M
+    # internal pml transfers, eagerly as Pready flags land.
+    def psend_init(self, value, partitions: int, dest: int, tag: int = 0,
+                   *, source=None):
+        self._check_alive()
+        from .part.framework import select_for_comm as part_select
+
+        if source is not None:
+            source = self.check_rank(source)
+        return part_select(self).psend_init(
+            self, value, partitions, self.check_rank(dest), tag,
+            source=source,
+        )
+
+    def precv_init(self, partitions: int, source: int, tag: int = 0, *,
+                   dest: int, like):
+        """``like`` supplies the receive shape/dtype (a tensor, a
+        ``meta`` tensor or anything with ``shape`` and ``dtype``); total
+        element count and dtype must match the sender's buffer."""
+        self._check_alive()
+        from .part.framework import select_for_comm as part_select
+
+        return part_select(self).precv_init(
+            self, partitions, self.check_rank(source), tag,
+            dest=self.check_rank(dest), like=like,
+        )
 
     # -- p2p (delegated to the selected PML) ------------------------------
 

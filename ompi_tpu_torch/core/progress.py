@@ -9,7 +9,8 @@ In the port, device work is enqueued on a CUDA stream and a request
 completes when the CUDA event recorded after it has passed
 (``event.query()``). The engine pumps host-side state machines and the
 predicates of timed waits: ``progress_until`` drives a request's
-``_poll`` until it completes or the timeout lapses. The heartbeat seam
+``_poll`` until it completes or the timeout lapses, one thread pumping
+while other waiters sleep on completion notifications. The heartbeat seam
 (``set_heartbeat``) stays unset until the health plane is ported.
 """
 
@@ -44,6 +45,14 @@ class ProgressEngine:
         self._low_priority: list[ProgressFn] = []
         self._lock = threading.RLock()
         self._call_count = 0
+        # multi-waiter coordination (reference: wait_sync.h): one thread
+        # pumps, the rest sleep on completion notifications. Reentrant:
+        # a callback's nested wait must still be able to pump.
+        self._pumper = threading.RLock()
+        self._wait_cv = threading.Condition()
+        self._sleepers = 0  # waiters asleep on the condition
+        self._waiters = 0  # threads inside progress_until
+        self._last_wake = 0.0
 
     def register(self, fn: ProgressFn, low_priority: bool = False) -> None:
         with self._lock:
@@ -75,31 +84,81 @@ class ProgressEngine:
             events += fn()
         return events
 
+    def pump_once(self) -> int | None:
+        """One sweep, unless a thread is waiting in ``progress_until``
+        (it pumps for itself) or pumping (then None): a background
+        pumper stands aside for the waiters instead of taking turns
+        with them, which under the GIL would cost each of them a switch
+        interval at every release."""
+        if self._waiters or not self._pumper.acquire(blocking=False):
+            return None
+        try:
+            return self.progress()
+        finally:
+            self._pumper.release()
+
     def notify_completion(self) -> None:
-        """A request completed (called from ``Request._complete``, the
-        wait_sync 'signal' side). The port's waiters never park:
-        ``progress_until`` sweeps and yields, so there is no one to wake
-        yet. Parking on a transport's doorbell, and this wake with it,
-        come with the first transport that parks."""
+        """Wake sleeping waiters: a request completed (called from
+        ``Request._complete``, the wait_sync 'signal' side)."""
+        # Racy reads: a missed wake costs a sleeper at most its 2 ms tick.
+        # The hot path (a completion a transfer) pays no lock when none
+        # sleeps, and wakes the sleepers at most once a millisecond: each
+        # wake takes the GIL from the pumper, which completes thousands
+        # of requests a sweep on a training step.
+        if self._sleepers:
+            now = time.monotonic()
+            if now - self._last_wake >= 1e-3:
+                self._last_wake = now
+                with self._wait_cv:
+                    self._wait_cv.notify_all()
 
     def progress_until(
         self,
         predicate: Callable[[], bool],
         timeout: float | None = None,
     ) -> bool:
-        """Sweep the engine until predicate() or timeout, yielding the
-        scheduler between sweeps (reference: opal_progress's
-        sched_yield idle path). Parking on a transport's doorbell, and
-        waking the other waiters, come with the first transport that
+        """Drive the engine until predicate() or timeout. With several
+        blocked threads ONE pumps the callbacks (yielding the scheduler
+        between sweeps, reference: opal_progress's sched_yield idle
+        path) while the others sleep on a condition variable that
+        request completion notifies, bounded to 2 ms (the reference's
+        multi-waiter wait_sync design). Parking the pumper on a
+        transport's doorbell comes with the first transport that
         parks."""
         deadline = None if timeout is None else time.monotonic() + timeout
+        with self._lock:
+            self._waiters += 1
+        try:
+            return self._wait(predicate, deadline)
+        finally:
+            with self._lock:
+                self._waiters -= 1
+
+    def _wait(self, predicate, deadline) -> bool:
         while not predicate():
-            self.progress()
-            if predicate():
-                return True
-            if deadline is not None and time.monotonic() >= deadline:
-                return False
-            os.sched_yield()
+            if self._pumper.acquire(blocking=False):
+                try:
+                    self.progress()
+                finally:
+                    self._pumper.release()
+                if predicate():
+                    return True
+                if deadline is not None and time.monotonic() >= deadline:
+                    return False
+                os.sched_yield()
+            else:
+                # someone else is pumping: sleep until a completion fires
+                with self._wait_cv:
+                    if not predicate():
+                        self._sleepers += 1
+                        try:
+                            self._wait_cv.wait(timeout=0.002)
+                        finally:
+                            self._sleepers -= 1
+                if predicate():
+                    return True
+                if deadline is not None and time.monotonic() >= deadline:
+                    return False
         return True
 
 

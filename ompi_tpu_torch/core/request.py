@@ -4,7 +4,9 @@ Port of ``ompi_tpu/core/request.py`` (reference: ompi/request/request.h,
 req_wait.c:92-141; test/wait{any,some,all} in req_test.c/req_wait.c;
 generalized requests in grequest.c; persistent requests via ``start``,
 pml.h:292): ``Status``, ``RequestState``, ``Request``,
-``CompletedRequest``, ``GeneralizedRequest`` and the wait/test families.
+``CompletedRequest``, ``PartitionedRequest`` (MPI-4 Pready/Parrived
+over the part framework's hooks), ``GeneralizedRequest`` and the
+wait/test families.
 
 A request completes either at creation (``CompletedRequest``) or when
 its ``_poll`` sees its work finished; ``wait`` drives the progress
@@ -13,23 +15,28 @@ engine until then. A collective's request (``coll.framework
 (``pml.ob1.RecvRequest``) hold the CUDA event recorded after their
 work. ``_complete`` wakes the progress engine, fires peruse's
 ``REQ_COMPLETE`` and marks the result defined for the memchecker, as
-the JAX package's does. Partitioned requests come with the
-partitioned-communication slice; the sanitizer's tracker with the
+the JAX package's does. The sanitizer's tracker comes with the
 analysis tools.
 """
 
 from __future__ import annotations
 
 import enum
+import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
 
 from . import memchecker, peruse
 from . import progress as _progress
-from .errors import RequestError
+from .errors import ArgumentError, RequestError
 
 ANY_SOURCE = -1
 ANY_TAG = -1
+
+# Orders a completion against an on_complete() on another thread: the
+# state change and the taking of the callback list are one step, and so
+# are the state check and the append, so no callback is lost.
+_COMPLETION_LOCK = threading.Lock()
 
 
 @dataclass
@@ -77,24 +84,28 @@ class Request:
         return self.state == RequestState.COMPLETE
 
     def _complete(self, result: Any = None, status: Status | None = None):
-        if self.state in (RequestState.COMPLETE, RequestState.CANCELLED):
-            return
-        self._result = result
-        if status is not None:
-            self.status = status
-        self.state = RequestState.COMPLETE
+        with _COMPLETION_LOCK:
+            if self.state in (RequestState.COMPLETE, RequestState.CANCELLED):
+                return
+            self._result = result
+            if status is not None:
+                self.status = status
+            self.state = RequestState.COMPLETE
+            callbacks = list(self._callbacks)
         _progress.ENGINE.notify_completion()  # wake sleeping waiters
         peruse.fire(peruse.PeruseEvent.REQ_COMPLETE, request=self)
         if result is not None:
             memchecker.mark_defined(result)
-        for cb in self._callbacks:
+        for cb in callbacks:
             cb(self)
 
     def on_complete(self, cb: Callable[["Request"], None]) -> None:
-        if self.state == RequestState.COMPLETE:
+        with _COMPLETION_LOCK:
+            done = self.state == RequestState.COMPLETE
+            if not done:
+                self._callbacks.append(cb)
+        if done:
             cb(self)
-        else:
-            self._callbacks.append(cb)
 
     # -- public API -------------------------------------------------------
 
@@ -160,6 +171,116 @@ class CompletedRequest(Request):
     def __init__(self, result: Any = None, status: Status | None = None):
         super().__init__()
         self._complete(result, status)
+
+
+class PartitionedRequest(Request):
+    """MPI-4 partitioned-communication handle (MPI_Psend_init /
+    MPI_Precv_init; reference: ompi/mca/part/persist's
+    ompi_part_persist_request_t). The user declares N partitions of one
+    buffer; a part component maps them onto M internal transfers. This
+    base type owns the partition bookkeeping and the Pready / Parrived
+    argument contract; components implement the transfer machinery via
+    the `_partition_ready` / `_partition_arrived` hooks.
+
+    Semantics (MPI-4 §4.2): the request is persistent — start()
+    re-arms it and resets every partition to not-ready; Pready is legal
+    only on an active send-side request and only once per partition per
+    start cycle; Parrived polls an active (or completed) receive-side
+    request and may be called repeatedly, before or after overall
+    completion."""
+
+    def __init__(self, partitions: int, *, sending: bool) -> None:
+        if partitions < 1:
+            raise ArgumentError(
+                f"partitioned request needs >= 1 partition, got {partitions}"
+            )
+        super().__init__(persistent=True)
+        self.partitions = partitions
+        self.sending = sending
+        self._flagged = [False] * partitions
+
+    def _check_partition(self, partition: int) -> int:
+        if not 0 <= partition < self.partitions:
+            raise ArgumentError(
+                f"partition {partition} out of range "
+                f"[0, {self.partitions})"
+            )
+        return partition
+
+    def pready(self, partition: int) -> None:
+        """MPI_Pready: mark one send partition filled; the component may
+        drain it (and any transfer it completes) immediately."""
+        self._pready_burst([partition])
+
+    def pready_range(self, lo: int, hi: int) -> None:
+        """MPI_Pready_range: inclusive bounds, matching the MPI binding.
+        The whole range is validated up front and handed to the
+        component as ONE burst (one drain sweep / dispatch window), not
+        partition-at-a-time."""
+        self._check_partition(lo)
+        self._check_partition(hi)
+        if hi < lo:
+            raise ArgumentError(f"Pready_range: hi {hi} < lo {lo}")
+        self._pready_burst(list(range(lo, hi + 1)))
+
+    def pready_list(self, partitions: Sequence[int]) -> None:
+        """MPI_Pready_list — same burst contract as pready_range."""
+        self._pready_burst(list(partitions))
+
+    def _pready_burst(self, partitions: Sequence[int]) -> None:
+        """Validate a Pready burst ATOMICALLY, then flag and hand the
+        whole set to the component in one call. A duplicate anywhere in
+        the burst (against this cycle's flags or within the burst
+        itself) raises BEFORE any partition is flagged, so an erroneous
+        overlapping Pready_range can never double-send a transfer."""
+        if not self.sending:
+            raise RequestError("Pready on a receive-side partitioned request")
+        if self.state is not RequestState.ACTIVE:
+            raise RequestError("Pready on a partitioned request that is "
+                               "not active (call start() first)")
+        seen = set()
+        for partition in partitions:
+            p = self._check_partition(partition)
+            if self._flagged[p] or p in seen:
+                raise RequestError(
+                    f"Pready: partition {p} already marked ready this "
+                    "cycle"
+                )
+            seen.add(p)
+        for p in partitions:
+            self._flagged[p] = True
+        self._partitions_ready(list(partitions))
+
+    def parrived(self, partition: int) -> bool:
+        """MPI_Parrived: has this receive partition fully arrived?"""
+        if self.sending:
+            raise RequestError("Parrived on a send-side partitioned request")
+        self._check_partition(partition)
+        if self.state is RequestState.INACTIVE:
+            raise RequestError("Parrived on a partitioned request that is "
+                               "not active (call start() first)")
+        return self._partition_arrived(partition)
+
+    def start(self) -> "Request":
+        if self.state is RequestState.ACTIVE:
+            raise RequestError("start() on already-active request")
+        self._flagged = [False] * self.partitions
+        return super().start()
+
+    # -- component hooks --------------------------------------------------
+
+    def _partitions_ready(self, partitions: list) -> None:
+        """Burst hook: every partition is already flagged. Components
+        override to coalesce the burst (one probe sweep, one dispatch
+        window); the default degrades to partition-at-a-time."""
+        for p in partitions:
+            self._partition_ready(p)
+
+    def _partition_ready(self, partition: int) -> None:
+        raise NotImplementedError
+
+    def _partition_arrived(self, partition: int) -> bool:
+        raise NotImplementedError
 
 
 class GeneralizedRequest(Request):

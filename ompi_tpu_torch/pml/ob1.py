@@ -31,6 +31,8 @@ unless the communicator has one rank.
 
 from __future__ import annotations
 
+import collections
+import itertools
 import threading
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -134,14 +136,55 @@ class _PendingSend:
 
 class _CommP2P:
     """Per-communicator matching state. MPI's non-overtaking order falls
-    out of list order: the controller issues sends/recvs sequentially, so
+    out of arrival order: the controller issues sends/recvs sequentially, so
     arrival order IS send order per (src, dst) — the reference needs
     explicit per-peer sequence counters (pml_ob1_recvfrag.c:387-412) only
-    because its fragments race over the wire."""
+    because its fragments race over the wire.
+
+    The unexpected queue is a dict in arrival order (sequence number ->
+    pending send) beside an index of the sequence numbers per envelope
+    (src, dst, tag), so a receive or probe naming its source and tag
+    finds its first match without walking the queue (the partitioned
+    layer keeps thousands of transfers in flight); a wildcard walks the
+    queue in arrival order, as before."""
 
     def __init__(self) -> None:
-        self.unexpected: list[_PendingSend] = []  # arrival order
+        self.unexpected: dict[int, _PendingSend] = {}  # arrival order
+        self.by_envelope: dict[tuple, collections.deque] = {}
         self.posted: list[RecvRequest] = []  # post order
+        self._seq = itertools.count()
+        self.arrivals = 0  # sends parked so far
+
+    def park(self, pending: _PendingSend) -> None:
+        seq = next(self._seq)
+        self.arrivals += 1
+        self.unexpected[seq] = pending
+        env = pending.env
+        self.by_envelope.setdefault(
+            (env.src, env.dst, env.tag), collections.deque()).append(seq)
+
+    def find(self, req: "RecvRequest") -> Optional[int]:
+        """Sequence number of the first parked send ``req`` matches."""
+        if req.state is not RequestState.ACTIVE:
+            return None
+        if req.want_src != ANY_SOURCE and req.want_tag != ANY_TAG:
+            key = (req.want_src, req.dst, req.want_tag)
+            q = self.by_envelope.get(key)  # take() keeps it exact
+            return q[0] if q else None
+        for seq, pending in self.unexpected.items():
+            if Ob1Pml._compatible(req, pending.env):
+                return seq
+        return None
+
+    def take(self, seq: int) -> _PendingSend:
+        pending = self.unexpected.pop(seq)
+        env = pending.env
+        key = (env.src, env.dst, env.tag)
+        q = self.by_envelope[key]
+        q.remove(seq)  # its head: matching is first-come per envelope
+        if not q:
+            del self.by_envelope[key]
+        return pending
 
 
 def _nbytes_of(value) -> int:
@@ -183,8 +226,12 @@ class Ob1Pml(PmlComponent):
     def _state(self, comm) -> _CommP2P:
         st = self._comm_state.get(comm.cid)
         if st is None:
-            st = _CommP2P()
-            self._comm_state[comm.cid] = st
+            # made once: a second thread's first touch (a send against
+            # a progress sweep) must not park into a copy that is dropped
+            with self._mu:
+                st = self._comm_state.get(comm.cid)
+                if st is None:
+                    st = self._comm_state[comm.cid] = _CommP2P()
         return st
 
     def comm_freed(self, comm) -> None:
@@ -211,6 +258,12 @@ class Ob1Pml(PmlComponent):
         raise RankError(
             "cannot infer source rank from value placement; pass source="
         )
+
+    def arrivals(self, comm) -> int:
+        """How many sends have parked in ``comm``'s unexpected queue so
+        far: a poller that found nothing to match needs to probe again
+        only after this moves (the partitioned drain's skip)."""
+        return self._state(comm).arrivals
 
     # -- send path --------------------------------------------------------
 
@@ -246,7 +299,7 @@ class Ob1Pml(PmlComponent):
         # match-or-park is atomic under the matching mutex.
         with self._mu:
             if not self._match_posted(st, pending):
-                st.unexpected.append(pending)
+                st.park(pending)
                 peruse.fire(
                     peruse.PeruseEvent.QUEUE_UNEXPECTED, env=env
                 )
@@ -328,12 +381,11 @@ class Ob1Pml(PmlComponent):
         return False
 
     def _match_unexpected(self, st: _CommP2P, req: RecvRequest) -> bool:
-        for i, pending in enumerate(st.unexpected):
-            if self._compatible(req, pending.env):
-                st.unexpected.pop(i)
-                self._deliver(pending, req)
-                return True
-        return False
+        seq = st.find(req)
+        if seq is None:
+            return False
+        self._deliver(st.take(seq), req)
+        return True
 
     # -- probe ------------------------------------------------------------
 
@@ -351,14 +403,11 @@ class Ob1Pml(PmlComponent):
               blocking: bool = True) -> Optional[Status]:
         probe_req = self._probe_req(comm, source, tag, dest, "probe")
         st = self._state(comm)
-        with self._mu:  # concurrent pops shift list positions
-            for pending in st.unexpected:
-                if self._compatible(probe_req, pending.env):
-                    return Status(
-                        source=pending.env.src,
-                        tag=pending.env.tag,
-                        count=pending.env.nbytes,
-                    )
+        with self._mu:  # concurrent pops change the queue
+            seq = st.find(probe_req)
+            if seq is not None:
+                env = st.unexpected[seq].env
+                return Status(source=env.src, tag=env.tag, count=env.nbytes)
         if not blocking:
             return None
         raise TagError(
@@ -377,11 +426,10 @@ class Ob1Pml(PmlComponent):
         probe_req = self._probe_req(comm, source, tag, dest, "improbe")
         st = self._state(comm)
         with self._mu:  # match-and-remove must be atomic vs matching
-            for i, pending in enumerate(st.unexpected):
-                if self._compatible(probe_req, pending.env):
-                    st.unexpected.pop(i)
-                    SPC.record("pml_improbe_hits")
-                    return Message(self, comm, pending, probe_req.dst)
+            seq = st.find(probe_req)
+            if seq is not None:
+                SPC.record("pml_improbe_hits")
+                return Message(self, comm, st.take(seq), probe_req.dst)
         return None
 
 
