@@ -38,9 +38,13 @@ Phases (any failure raises and exits non-zero):
    started together) with the compiler's register and spill report.
 2. Each kernel against its plain version (the protocol simulator), on
    the card, bitwise, at small and ragged sizes, every flag back at 0:
-   the allreduce kernels for int32/float32/bfloat16 x
-   sum/max/min/prod (ring and chunked at n in {2, 3, 8}, recursive
-   doubling at n in {2, 8}, the bidirectional ring at n in {2, 3, 8},
+   the allreduce kernels for the reduction kernels' seven dtypes
+   (``DTYPES``: int32, float32, bfloat16, float64, float16, int8, uint8;
+   every loop below over a reduction kernel or a ``*_block`` wrapper
+   runs all seven) x sum/max/min/prod, with an int8 and a uint8 SUM of
+   100 at every rank that wraps (ring and chunked at n in {2, 3, 8},
+   recursive doubling at n in {2, 8}, the bidirectional ring at n in
+   {2, 3, 8},
    also at four (stripes, threads) plans, on halves that are not whole
    16-byte vectors and at 1 MiB per rank);
    reduce-scatter and tree reduce likewise at n in {2, 3, 8} (the trees
@@ -50,7 +54,7 @@ Phases (any failure raises and exits non-zero):
    segments at n in {3, 8, 12}, its buffers in a cluster's shared memory
    and in L2); allgather, tree bcast (also over four
    segments, the last ragged), alltoall, gather and
-   scatter for the three dtypes (gather, scatter and bcast at roots 0
+   scatter for the seven dtypes (gather, scatter and bcast at roots 0
    and n-1; the allgather also with one stripe over 41 segments and with
    the plan's stripes at n in {3, 8}, its buffers in a cluster's shared
    memory and in L2, and at n = 12 in L2), the tree bcast for uint8,
@@ -95,15 +99,19 @@ Phases (any failure raises and exits non-zero):
    controls, p or the output accumulator rounded, must fail the bfloat16
    limit); and 20 launches at n = 8 and at
    n = 3 per dtype, bitwise equal to each other. Every flag back at 0
-   after every launch.
+   after every launch. Ring attention also at the flagship model's
+   folded shape (tp = 2 ranks, T = 1024, 256 heads of 128, bfloat16,
+   causal) against its plain version to one bfloat16 ulp, which the two
+   rounded controls must fail, timed beside its bound and SDPA.
 3. The main path at full width, n = 8, through ``init(nranks=8)`` and
    two vtable routes: a ``world.dup()`` with
    ``coll_pallas_priority=100`` (PallasColl) and one with TunedColl and
    ``coll_tuned_<op>_algorithm`` forcing each kernel's name. It runs as
-   eleven paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
+   thirteen paths (allreduce; bcast/reduce/reduce-scatter/allgather; the
    bidirectional ring; alltoall/gather/scatter; the schedule compiler;
    the quantized wire; ring attention; the ring hop; the surface;
-   point-to-point and the nonblocking collectives; the training step);
+   point-to-point and the nonblocking collectives; the training step;
+   the flagship model; the dry run);
    the launch counters are zeroed just before each path and read just
    after it, every kernel of the path must have launched there, and
    every result must equal its plain version (the kernels line sums a
@@ -250,10 +258,26 @@ Phases (any failure raises and exits non-zero):
      item's host ms, the reports' ``overlap_pct`` and
      ``exposed_comm_ms``, the peak reckoned, 9 G = 58.3 GB, and
      measured, the card's name and power limit).
+   - The flagship model (``models/transformer.build_forward``) at
+     Mixtral-8x7B's widths (vocab 32000, d_model 4096, 32 heads of
+     128, d_ff 14336, 8 experts of 14336; depth cut to 4 layers, context
+     to 2048 tokens) over (dp, pp, tp) = (2, 2, 2), batch 8, bfloat16,
+     with ``parallel_sp_impl=pallas``: exactly 6 ring-attention launches
+     a forward (2 layers x 3 pipeline ticks), a finite loss and the
+     last stage's hidden state (``build_hidden``) within
+     ``MODEL_LOSS_RTOL`` and ``MODEL_HIDDEN_TOL`` of the same forward on
+     the xla path, which two wrong models (attention without the other
+     tp rank's KV block, every token routed to the next expert) must
+     fail; its time and peak memory (a ``model`` JSON line).
+   - ``graft_entry.dryrun_multichip(8)`` (two training steps at the tiny
+     configuration, a vtable allreduce, the PallasColl allreduce through
+     recursive doubling and the fused ring attention against the xla
+     path) and ``entry()``'s forward.
    Each case frees its input, output and plain result before the next;
    ``max_memory_allocated`` is printed for each path and for the whole
    main path.
-4. A ``kernels`` JSON line, one row per kernel at its main-path size:
+4. A ``kernels`` JSON line, one row per kernel at its main-path size
+   (the reduction kernels' rows also carry their ``float64`` time):
    launches on the main path, max |kernel - plain|, p50 time of the
    kernel's wrapper over 20 launches (CUDA events, after warm-up), the
    plain version's time, the bytes bound over 3.35 TB/s (each input
@@ -307,8 +331,8 @@ Phases (any failure raises and exits non-zero):
    (``empty_launch_ms``) and the device time of ``x.clone()``, a
    device-to-device memcpy of the same bytes (``memcpy_device_ms``), each
    also printed on a line of its own.
-   ``ring_attention``'s row is bfloat16 causal, its other three cases in
-   ``also``; its bound is the larger of the bytes (q, k, v, out once)
+   ``ring_attention``'s row is bfloat16 causal, its other three cases and
+   the model's folded shape in ``also``; its bound is the larger of the bytes (q, k, v, out once)
    over 3.35 TB/s and the operations (4 S^2 H Dh, causal 4 H Dh
    S(S+1)/2) over 989 TFLOP/s bfloat16 or 67 TFLOP/s float32, and its
    library call ``scaled_dot_product_attention`` on (1, H, S, Dh). Each
@@ -322,8 +346,10 @@ Phases (any failure raises and exits non-zero):
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -334,6 +360,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KERNEL_REPS = 20
 GIB, MIB, KIB = 1 << 30, 1 << 20, 1 << 10
 N = 8
+#: The reduction kernels' element types (``pallas_ring._DTYPE_CODES``):
+#: every dtype loop of the kernel checks runs all seven.
+DTYPES = ("int32", "float32", "bfloat16", "float64", "float16", "int8",
+          "uint8")
+#: The seven reduction kernels: each row also gives its float64 time at
+#: the row's bytes per rank.
+F64_KERNELS = ("ring_allreduce", "ring_allreduce_rd",
+               "ring_allreduce_chunked", "ring_reduce_scatter",
+               "tree_reduce", "ring_allreduce_bidir", "sched_table")
+CARD = [""]  # nvidia-smi's "name, power limit", beside every time
 MAIN_SIZES = {  # allreduce kernel -> bytes per rank on the main path
     "ring_allreduce_rd": 4 * KIB,
     "ring_allreduce": MIB,
@@ -461,13 +497,28 @@ def max_abs_err(a, b) -> float:
 
 
 def random_rank_major(shape, dtype, gen):
+    """Seeded inputs: int32 in [-100, 100), int8 and uint8 over their
+    whole range (so SUM and PROD wrap), normal floats (float64 drawn in
+    float64, the others in float32 and rounded)."""
     import torch
 
+    if dtype in (torch.int8, torch.uint8):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max + 1, shape, generator=gen,
+                             device="cuda", dtype=torch.int32).to(dtype)
     if not dtype.is_floating_point:
         return torch.randint(-100, 100, shape, generator=gen, device="cuda",
                              dtype=torch.int32).to(dtype)
+    draw = torch.float64 if dtype == torch.float64 else torch.float32
     return torch.randn(shape, generator=gen, device="cuda",
-                       dtype=torch.float32).to(dtype)
+                       dtype=draw).to(dtype)
+
+
+def check_dtypes():
+    """The reduction kernels' seven element types, as torch dtypes."""
+    import torch
+
+    return [getattr(torch, name) for name in DTYPES]
 
 
 def check_sems(counter) -> None:
@@ -488,6 +539,32 @@ def equal_or_raise(got, want, what: str) -> float:
     if not torch.equal(bits(got), bits(want)):
         raise AssertionError(f"{what}: kernel != plain (max err {err})")
     return err
+
+
+def wrap_check(name: str, n: int, shape, run, root=None) -> int:
+    """An int8 and a uint8 SUM of 100 on each of n ranks through
+    ``run(x, plain)``: the kernel bitwise its plain version, every flag
+    back at 0, and the reduced rows (row ``root`` alone for a rooted
+    kernel) 100 n modulo 256, as the JAX package's int8 arithmetic
+    wraps. Returns the cases checked."""
+    import torch
+    from ompi_tpu_torch.core.counters import KERNELS
+
+    for dtype in (torch.int8, torch.uint8):
+        x = torch.full(shape, 100, dtype=dtype, device="cuda")
+        got = run(x, False)
+        torch.cuda.synchronize()
+        check_sems(KERNELS[name])
+        equal_or_raise(got, run(x, True), f"{name} n={n} {dtype} SUM of "
+                       f"100s")
+        want = (100 * n) % 256
+        if dtype == torch.int8 and want > 127:
+            want -= 256
+        rows = got if root is None else got[root]
+        if not bool((rows == want).all()):
+            raise AssertionError(f"{name} n={n} {dtype} SUM of 100s: not "
+                                 f"{want} (wrapped) everywhere")
+    return 2
 
 
 def kernel_vs_plain(pr, gen) -> None:
@@ -557,7 +634,7 @@ def kernel_vs_plain(pr, gen) -> None:
             MOVE_CASES)
         for n in ns:
             roots = (0, n - 1) if name in rooted else (0,)
-            for dtype in (torch.int32, torch.float32, torch.bfloat16):
+            for dtype in check_dtypes():
                 for op in ("sum", "max", "min", "prod") if reduces else (None,):
                     for elems in (sizes if name in MAIN_SIZES else
                                   coll_sizes + more_sizes.get(name, ())):
@@ -571,8 +648,14 @@ def kernel_vs_plain(pr, gen) -> None:
                                 f"{name} n={n} {dtype} {op} root={root} "
                                 f"elems={elems}")
                             checked += 1
-        log(f"[kernel-vs-plain] {name}: {checked} cases bitwise equal, "
-            f"all semaphores 0 ({time.time() - t0:.1f} s)")
+            if reduces:
+                root = n - 1 if name in rooted else None
+                checked += wrap_check(name, n, shape_of(n, 1000), lambda x, p:
+                                      fn(x, "sum", n - 1, p), root)
+        log(f"[kernel-vs-plain] {name}: {checked} cases at "
+            f"{', '.join(DTYPES)} bitwise equal, all semaphores 0"
+            f"{', int8/uint8 sums of 100s wrapped' if reduces else ''} "
+            f"({time.time() - t0:.1f} s)")
 
     # The reduce-scatter's wavefront with one stripe: 41 segments, more
     # than the n - 1 steps, on blocks that are not whole vectors; its
@@ -582,8 +665,9 @@ def kernel_vs_plain(pr, gen) -> None:
     checked = 0
     for n, clusters in ((3, (True, False)), (8, (True, False)),
                         (12, (False,))):
-        for dtype in (torch.int32, torch.float32, torch.bfloat16):
-            x = random_rank_major((n, n, 40 * rs_seg + 77), dtype, gen)
+        for dtype in check_dtypes():
+            seg = pr.RS_SEG_BYTES // dtype.itemsize
+            x = random_rank_major((n, n, 40 * seg + 77), dtype, gen)
             for op in ("sum", "max", "min", "prod"):
                 for cluster in clusters:
                     got = pr._rs_launch(x, op, stripes=1, cluster=cluster)
@@ -603,10 +687,10 @@ def kernel_vs_plain(pr, gen) -> None:
     # form), also at the plan's stripes there.
     t0 = time.time()
     checked = 0
-    ag_seg = pr.AG_SEG_BYTES // 4
     for n, clusters in ((3, (True, False)), (8, (True, False)),
                         (12, (False,))):
-        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+        for dtype in check_dtypes():
+            ag_seg = pr.AG_SEG_BYTES // dtype.itemsize
             x = random_rank_major((n, 40 * ag_seg + 77), dtype, gen)
             want = pr.ring_allgather_plain(x)
             for cluster in clusters:
@@ -628,11 +712,10 @@ def kernel_vs_plain(pr, gen) -> None:
     # a cluster's shared memory and in L2 up to n = 8 and in L2 at n = 12.
     t0 = time.time()
     checked = 0
-    ch_seg = pr.CHUNKED_CLUSTER_SEG_BYTES // 4
     for n, clusters in ((3, (True, False)), (8, (True, False)),
                         (12, (False,))):
-        for dtype in (torch.int32, torch.float32, torch.bfloat16):
-            W = 40 * ch_seg + 77
+        for dtype in check_dtypes():
+            W = 40 * (pr.CHUNKED_CLUSTER_SEG_BYTES // dtype.itemsize) + 77
             x = random_rank_major((n, n, W), dtype, gen)
             for op in ("sum", "max", "min", "prod"):
                 want = pr.ring_allreduce_chunked_plain(x, op, W)
@@ -657,7 +740,7 @@ def kernel_vs_plain(pr, gen) -> None:
     t0 = time.time()
     checked = 0
     for n in (2, 3, 8):
-        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+        for dtype in check_dtypes():
             for cols in (70, 1280) + ((MIB // 4 // n,) if n == N else ()):
                 if cols > 1280 and dtype != torch.float32:
                     continue
@@ -785,7 +868,7 @@ def kernel_vs_plain(pr, gen) -> None:
     for n in (2, 4, 8, 16):
         forms = ((None, None), (False, None)) + (
             ((True, 64),) if n <= pr.RS_CLUSTER_RANKS else ())
-        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+        for dtype in check_dtypes():
             for elems in (33, 2500):
                 x = random_rank_major((n, elems), dtype, gen)
                 for op in ("sum", "max", "min", "prod"):
@@ -835,7 +918,7 @@ def sched_kernel_vs_plain(pr, gen) -> None:
     for n in (2, 3, 4, 8, 12):
         for name, sched in table_programs(ir, pl, n).items():
             prog = pl.analyze(sched)
-            for dtype in (torch.int32, torch.float32, torch.bfloat16):
+            for dtype in check_dtypes():
                 for op in ("sum", "max", "min", "prod") if name != "ag" \
                         else ("sum",):
                     # ragged chunks, alternating between a short and a
@@ -850,8 +933,14 @@ def sched_kernel_vs_plain(pr, gen) -> None:
                                    f"sched_table {name} n={n} {dtype} {op} "
                                    f"chunk={chunk}")
                     checked += 1
-    log(f"[kernel-vs-plain] sched_table: {checked} cases bitwise equal, "
-        f"all semaphores 0 ({time.time() - t0:.1f} s)")
+            if name == "ring":
+                checked += wrap_check(
+                    "sched_table", n, (n, prog.nchunks, 1000),
+                    lambda x, p: (pl.sched_table_plain if p
+                                  else pl.sched_table)(prog, x, "sum"))
+    log(f"[kernel-vs-plain] sched_table: {checked} cases at "
+        f"{', '.join(DTYPES)} bitwise equal, all semaphores 0, int8/uint8 "
+        f"sums of 100s wrapped ({time.time() - t0:.1f} s)")
     # One stripe over fewer segments than a stage's rounds, as many and
     # more (the last ragged), the buffers in a cluster's shared memory and
     # in L2 (beyond 8 ranks in L2 only).
@@ -861,8 +950,8 @@ def sched_kernel_vs_plain(pr, gen) -> None:
         for name, sched in table_programs(ir, pl, n).items():
             prog = pl.analyze(sched)
             rounds = max(length for _, length in pl._stages(prog))
-            for dtype in (torch.int32, torch.float32, torch.bfloat16):
-                seg = 256 // (2 if dtype == torch.bfloat16 else 4)
+            for dtype in check_dtypes():
+                seg = 256 // dtype.itemsize
                 for segs in (2, rounds, rounds + 3):
                     data = random_rank_major(
                         (n, prog.nchunks, seg * segs - 5), dtype, gen)
@@ -1105,19 +1194,21 @@ def host_tier(tcomm, gen) -> None:
         f"B/rank {times[516]['route']} {times[516]['p50_ms']:.5f} ms")
 
 
-def coll_input(kernel, nbytes, gen):
+def coll_input(kernel, nbytes, gen, dtype=None):
     """The main path's input of a rooted or half-ring collective at
     ``nbytes`` per rank (sent for reduce-scatter, received for
-    allgather)."""
+    allgather), in ``dtype`` (by default the tree reduce's int32, the
+    others' float32)."""
     import torch
 
-    if kernel == "tree_reduce":
-        return random_rank_major((N, nbytes // 4), torch.int32, gen)
+    dtype = dtype or (torch.int32 if kernel == "tree_reduce"
+                      else torch.float32)
+    elems = nbytes // dtype.itemsize
     if kernel == "ring_reduce_scatter":
-        return random_rank_major((N, N, nbytes // 4 // N), torch.float32, gen)
+        return random_rank_major((N, N, elems // N), dtype, gen)
     if kernel == "ring_allgather":
-        return random_rank_major((N, nbytes // 4 // N), torch.float32, gen)
-    return random_rank_major((N, nbytes // 4), torch.float32, gen)
+        return random_rank_major((N, elems // N), dtype, gen)
+    return random_rank_major((N, elems), dtype, gen)
 
 
 def coll_path(pcomm, tcomm, pr, config, counters, gen) -> dict:
@@ -3139,6 +3230,297 @@ def train_step_path(pcomm, tcomm, pr, counters) -> dict:
     return {}
 
 
+# ---------------------------------------------------------------------------
+# The flagship model at Mixtral-8x7B's widths, and the dry run
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1 config.json:
+# vocab_size 32000, hidden_size 4096, num_attention_heads 32 (head dim
+# 128), intermediate_size 14336, num_local_experts 8) on the JAX
+# package's own architecture (multi-head attention, top-1 routing, a
+# two-matrix gelu MLP, learned positions). Cut: depth 32 -> 4 layers
+# (2 stages x 2), context 32768 -> 2048. 8 ranks as (dp, pp, tp) =
+# (2, 2, 2), batch 2 M dp = 8, bfloat16.
+MODEL_CFG = dict(vocab=32000, d_model=4096, n_heads=32, head_dim=128,
+                 d_ff=14336, layers_per_stage=2, seq_len=2048, n_experts=8,
+                 expert_ff=14336, moe_every=2, capacity_factor=1.25,
+                 microbatches=2)
+MODEL_BATCH = 8
+# One ring attention per layer per tick: 2 layers x (M + P - 1) ticks.
+MODEL_ATTN_LAUNCHES = 2 * (2 + 2 - 1)
+# The fused path against the xla path on the same parameters and tokens
+# (the xla path rounds its scores to bfloat16; the kernel does not): the
+# loss, relative, and the last stage's final hidden state, |h - h_xla| /
+# |h_xla| per token (norms over d_model). Two wrong models must fail
+# both limits: attention that drops the other tp rank's KV block, and
+# the MoE layers routing every token to the next expert. The loss limit
+# sits between the readings (NVIDIA H100 80GB HBM3, 700 W): the fused
+# path 2.57e-5, the controls 8.1e-4 and 3.7e-4. The hidden-state limit
+# reads the 90th percentile over tokens, not the largest: a token whose
+# top-1 router margin is below the paths' difference changes expert
+# (the largest was 0.65 for the fused path, 1.26 and 0.96 for the
+# controls), while each control changes at least half the tokens; at
+# the 90th percentile the fused path read 0.0139, the controls 0.973
+# and 0.741.
+MODEL_LOSS_RTOL = 1e-4
+MODEL_HIDDEN_TOL = 3e-2
+MODEL_TIMED = 2  # forwards timed after the first
+#: The attention at the model's folded shape: the kernels line's row 15
+#: "also" entry, set before the main path.
+MODEL_ATTN: dict = {}
+
+
+@contextlib.contextmanager
+def replaced(owner, attr: str, value):
+    """``owner.attr`` is ``value`` inside the block, and what it was
+    after."""
+    old = getattr(owner, attr)
+    setattr(owner, attr, value)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, old)
+
+
+@contextlib.contextmanager
+def sp_impl(config, impl: str):
+    """The cvar ``parallel_sp_impl`` is ``impl`` inside the block, and
+    what it was after."""
+    old = config.VARS.get("parallel_sp_impl")
+    config.VARS.set("parallel_sp_impl", impl)
+    try:
+        yield
+    finally:
+        config.VARS.set("parallel_sp_impl", old)
+
+
+def model_attention_check(gen) -> None:
+    """ring_attention at the model's folded shape (tp = 2 ranks, T =
+    1024, dp pp mb H = 256 heads of 128, bfloat16, causal), kernel
+    against its plain version on the same q, k, v, to one bfloat16 ulp
+    (ATTN_TOL), which the two rounded folds must fail; its time beside
+    its bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from ompi_tpu_torch.coll import pallas_attn as pa
+    from ompi_tpu_torch.core.counters import KERNELS
+
+    t0 = time.time()
+    tp, dp, pp = 2, 2, 2
+    seq = MODEL_CFG["seq_len"]
+    t = seq // tp
+    heads = dp * pp * (MODEL_BATCH // dp // MODEL_CFG["microbatches"]) * \
+        MODEL_CFG["n_heads"]
+    dh = MODEL_CFG["head_dim"]
+    q, k, v = (random_rank_major((tp, t, heads, dh), torch.bfloat16, gen)
+               for _ in range(3))
+    got = pa.ring_attention_block(q, k, v, True)
+    torch.cuda.synchronize()
+    check_sems(KERNELS["ring_attention"])
+    what = "ring_attention at the model's folded shape"
+    tol = ATTN_TOL["bfloat16"]
+    plain = pa.ring_attention_block_plain(q, k, v, True)
+    err, ratio = within(got, plain, tol, what)
+    controls = []
+    for where in ("p", "o"):
+        controls.append(excess(rounded_control(q, k, v, True, where), plain,
+                               tol)[1])
+        if controls[-1] <= 1.0:
+            raise AssertionError(f"{what}: a fold that rounds {where} to "
+                                 f"bfloat16 passes the tolerance")
+    flops = 4 * heads * dh * seq * (seq + 1) / 2
+    nbytes = 4 * q.numel() * q.element_size()
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    lq, lk, lv = (x.reshape(seq, heads, dh).transpose(0, 1).unsqueeze(0)
+                  .contiguous() for x in (q, k, v))
+    MODEL_ATTN.update({
+        "shape": "model", "nranks": tp, "tokens_per_rank": t,
+        "heads": heads, "head_dim": dh, "dtype": "bfloat16",
+        "causal": True, "max_abs_err": err,
+        "ms": p50_ms(lambda: pa.ring_attention_block(q, k, v, True),
+                     KERNEL_REPS),
+        "plain_ms": p50_ms(
+            lambda: pa.ring_attention_block_plain(q, k, v, True), 3),
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "library_ms": p50_ms(lambda: F.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=True), KERNEL_REPS),
+        "flops": flops, "bytes": nbytes,
+    })
+    MODEL_ATTN["tflops_per_s"] = flops / MODEL_ATTN["ms"] / 1e9
+    log(f"[model] {what} (tp={tp}, T={t}, H'={heads}, Dh={dh}, bf16 "
+        f"causal): max err {err:.3g} vs plain ({ratio:.3g} of the limit at "
+        f"atol, rtol {tol}); controls rounding p / o to bfloat16 "
+        f"{controls[0]:.3g} / {controls[1]:.3g} times the limit, refused; "
+        f"{MODEL_ATTN['ms']:.4f} ms p50 (bound {MODEL_ATTN['bound_ms']:.4f}"
+        f" ms by {MODEL_ATTN['bound_by']}, plain "
+        f"{MODEL_ATTN['plain_ms']:.3f} ms, SDPA "
+        f"{MODEL_ATTN['library_ms']:.4f} ms, "
+        f"{MODEL_ATTN['tflops_per_s']:.2f} TFLOP/s) [{CARD[0]}] "
+        f"({time.time() - t0:.1f} s)")
+
+
+def hidden_rel(got, want) -> dict:
+    """|got - want| / |want| per token (norms over the last axis), in
+    float32: its 90th percentile over tokens (what MODEL_HIDDEN_TOL
+    reads), its largest, and the same over the whole tensor."""
+    import torch
+
+    got, want = got.float(), want.float()
+    diff = got - want
+    per = (diff.norm(dim=-1) / want.norm(dim=-1)).flatten()
+    return {"p90": float(torch.quantile(per, 0.9)), "max": float(per.max()),
+            "whole": float(diff.norm() / want.norm())}
+
+
+def model_path(config) -> dict:
+    """The flagship's forward at Mixtral-8x7B's widths over (dp, pp, tp)
+    = (2, 2, 2) on the card with ``parallel_sp_impl=pallas``: a finite
+    loss, exactly MODEL_ATTN_LAUNCHES ring-attention launches a forward,
+    the loss within MODEL_LOSS_RTOL and the last stage's hidden state
+    within MODEL_HIDDEN_TOL of the same forward on the xla path, which
+    two wrong models (MODEL_HIDDEN_TOL's controls) fail; its time, peak
+    memory and a ``model`` JSON line."""
+    import torch
+    from ompi_tpu_torch.coll import pallas_attn as pa
+    from ompi_tpu_torch.core import tree
+    from ompi_tpu_torch.models import transformer as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = T.ModelConfig(dtype=torch.bfloat16, **MODEL_CFG)
+    mesh = T.demo_mesh(N)
+    t0 = time.time()
+    params = T.sharded_init(cfg, mesh, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    nparams = sum(p.numel() for p in tree.leaves(params))
+    tokens, targets = T.make_batch(cfg, batch=MODEL_BATCH)
+    fwd = T.build_forward(cfg, mesh)
+    hidden = T.build_hidden(cfg, mesh)
+    last = T.last_stage(mesh)
+
+    def run():
+        before = pa.ATTN.launches
+        start = time.time()
+        loss = fwd(params, tokens, targets)
+        torch.cuda.synchronize()
+        took = time.time() - start
+        if pa.ATTN.launches - before != MODEL_ATTN_LAUNCHES:
+            raise AssertionError(
+                f"model forward: {pa.ATTN.launches - before} ring-attention "
+                f"launches, not {MODEL_ATTN_LAUNCHES}")
+        check_sems(pa.ATTN)
+        return loss, took
+
+    with sp_impl(config, "pallas"):
+        loss, first_s = run()
+        times = [run()[1] for _ in range(MODEL_TIMED)]
+        h_fused = hidden(params, tokens)[last]
+    peak = torch.cuda.max_memory_allocated()
+    with sp_impl(config, "xla"):
+        start = time.time()
+        loss_xla = fwd(params, tokens, targets)
+        torch.cuda.synchronize()
+        xla_s = time.time() - start
+        h_xla = hidden(params, tokens)[last]
+        ring_attention = T.sp_mod.ring_attention
+        moe = T.ep_mod.moe_dispatch_combine
+
+        def local_attention(q, k, v, causal=True, impl=None):
+            tp, t, h, dh = q.shape
+
+            def fold(x):  # each rank's block alone: the ranks into heads
+                return x.permute(1, 0, 2, 3).reshape(1, t, tp * h, dh)
+
+            out = ring_attention(fold(q), fold(k), fold(v), causal=causal)
+            return out.reshape(t, tp, h, dh).permute(1, 0, 2, 3)
+
+        controls = {}
+        for name, owner, attr, wrong in (
+                ("attention without the other ranks' KV blocks", T.sp_mod,
+                 "ring_attention", local_attention),
+                ("every token routed to the next expert", T.ep_mod,
+                 "moe_dispatch_combine",
+                 lambda x, logits, *a, **kw: moe(x, logits.roll(1, -1), *a,
+                                                 **kw))):
+            with replaced(owner, attr, wrong):
+                h_wrong = hidden(params, tokens)[last]
+                loss_wrong = float(fwd(params, tokens, targets))
+            controls[name] = {"hidden_rel": hidden_rel(h_wrong, h_xla),
+                              "loss_rel": abs(loss_wrong - float(loss_xla))
+                              / abs(float(loss_xla))}
+            h_wrong = None
+    loss, loss_xla = float(loss), float(loss_xla)
+    rel = abs(loss - loss_xla) / abs(loss_xla)
+    h_rel = hidden_rel(h_fused, h_xla)
+    out = {
+        "config": "Mixtral-8x7B widths, 4 layers, 2048 tokens",
+        "mesh": mesh.shape, "batch": MODEL_BATCH, "dtype": "bfloat16",
+        "params_per_rank": nparams // N, "init_s": init_s,
+        "loss": loss, "loss_xla": loss_xla, "rel_diff": rel,
+        "hidden_rel": h_rel, "hidden_tol": MODEL_HIDDEN_TOL,
+        "loss_rtol": MODEL_LOSS_RTOL, "controls": controls,
+        "first_forward_s": first_s, "forward_s": times,
+        "xla_forward_s": xla_s, "peak_bytes": peak,
+        "attn_launches_per_forward": MODEL_ATTN_LAUNCHES,
+        "card": CARD[0],
+    }
+    print(json.dumps({"model": out}), flush=True)
+    log(f"[model] forward at Mixtral-8x7B widths (dp, pp, tp = 2, 2, 2; 4 "
+        f"layers, 2048 tokens, batch {MODEL_BATCH}, bf16): loss {loss:.5f}, "
+        f"xla path {loss_xla:.5f} ({rel:.3g} relative, limit "
+        f"{MODEL_LOSS_RTOL}); last stage's hidden state from the xla "
+        f"path's {h_rel['p90']:.3g} at the 90th percentile of tokens "
+        f"(limit {MODEL_HIDDEN_TOL}; largest {h_rel['max']:.3g}, whole "
+        f"{h_rel['whole']:.3g}); controls "
+        + "; ".join(f"{name}: hidden {c['hidden_rel']['p90']:.3g} (largest "
+                    f"{c['hidden_rel']['max']:.3g}), loss {c['loss_rel']:.3g}"
+                    for name, c in controls.items())
+        + f"; {MODEL_ATTN_LAUNCHES} ring-attention launches a forward; "
+        f"forward {min(times):.3f} s (first {first_s:.3f} s, xla path "
+        f"{xla_s:.3f} s), peak {peak} bytes, init {init_s:.1f} s "
+        f"[{CARD[0]}]")
+    if not (math.isfinite(loss) and math.isfinite(loss_xla)):
+        raise AssertionError(f"model loss {loss} / xla {loss_xla}")
+    if rel > MODEL_LOSS_RTOL:
+        raise AssertionError(f"model loss {loss} vs the xla path's "
+                             f"{loss_xla}: {rel:.3g} relative")
+    if not h_rel["p90"] <= MODEL_HIDDEN_TOL:
+        raise AssertionError(f"model hidden state {h_rel} from the xla "
+                             f"path's")
+    for name, c in controls.items():
+        if not (c["hidden_rel"]["p90"] > MODEL_HIDDEN_TOL
+                and c["loss_rel"] > MODEL_LOSS_RTOL):
+            raise AssertionError(f"model control ({name}) passes a limit: "
+                                 f"{c}")
+    params = h_fused = h_xla = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {}
+
+
+def dryrun_path() -> dict:
+    """``graft_entry.dryrun_multichip(8)`` on the card (two training
+    steps at the tiny configuration, a vtable allreduce, the kernel
+    tier), then ``entry()``'s forward once."""
+    import torch
+    from ompi_tpu_torch import graft_entry
+
+    t0 = time.time()
+    line = graft_entry.dryrun_multichip(N)
+    fn, args = graft_entry.entry()
+    loss = float(fn(*args))
+    torch.cuda.synchronize()
+    if not math.isfinite(loss):
+        raise AssertionError(f"entry() forward loss {loss}")
+    log(f"[dryrun] {line}; entry() forward loss {loss:.5f} "
+        f"({time.time() - t0:.1f} s)")
+    return {}
+
+
 def main_path(tt, pr, config) -> tuple[dict, dict]:
     """Both vtable routes at full size, path by path; returns (kernel ->
     max error, kernel -> launches on its path)."""
@@ -3185,6 +3567,8 @@ def main_path(tt, pr, config) -> tuple[dict, dict]:
         (SURFACE_KERNELS, lambda: p2p_path(pcomm, tcomm, counters, gen)),
         (TRAIN_KERNELS, lambda: train_step_path(pcomm, tcomm, pr,
                                                 counters)),
+        (("ring_attention",), lambda: model_path(config)),
+        (("ring_allreduce_rd", "ring_attention"), dryrun_path),
     )
     errs, launches = {}, {}
     for kernels, drive in paths:
@@ -3225,11 +3609,12 @@ def p50_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def sched_case(program: str, nbytes: int, gen):
+def sched_case(program: str, nbytes: int, gen, dtype=None):
     """(kernel call, plain call, library call, bound bytes) of the table
     kernel on ``program`` ("ring", "seg" or "rs", the programs behind
     sched_pallas_ring, _ring_seg and _rs) at ``nbytes`` per rank (sent,
-    for the reduce-scatter), on its registered wrapper's layout."""
+    for the reduce-scatter), on its registered wrapper's layout, in
+    ``dtype`` (float32 by default)."""
     import torch
     from ompi_tpu_torch.coll import sched as sched_mod
     from ompi_tpu_torch.coll.sched import pallas_lower as pl
@@ -3238,12 +3623,14 @@ def sched_case(program: str, nbytes: int, gen):
     algo = {"ring": "sched_pallas_ring", "seg": "sched_pallas_ring_seg",
             "rs": "sched_pallas_rs"}[program]
     prog = pl.analyze(sched_mod.build_schedule(algo, n))
+    dtype = dtype or torch.float32
+    elems = nbytes // dtype.itemsize
     if program == "rs":
-        x = random_rank_major((n, n, nbytes // 4 // n), torch.float32, gen)
+        x = random_rank_major((n, n, elems // n), dtype, gen)
         data, library = x, lambda: x.sum(0)
         bound = (n + 1) * nbytes
     else:
-        x = random_rank_major((n, nbytes // 4), torch.float32, gen)
+        x = random_rank_major((n, elems), dtype, gen)
         # sizes are multiples of nchunks x 128 elements: no padding
         data = x.reshape(n, prog.nchunks, -1)
         library = lambda: x.sum(0, keepdim=True).expand_as(x).contiguous()  # noqa: E731
@@ -3252,13 +3639,15 @@ def sched_case(program: str, nbytes: int, gen):
             lambda: pl.sched_table_plain(prog, data, "sum"), library, bound)
 
 
-def timed_case(pr, kernel, nbytes, gen):
+def timed_case(pr, kernel, nbytes, gen, dtype=None):
     """(kernel call, plain call, library call, bound bytes, dtype, op) at
-    ``nbytes`` per rank, on the kernel's own layout."""
+    ``nbytes`` per rank, on the kernel's own layout; a reduction kernel
+    in ``dtype`` if one is given (its row's dtype by default)."""
     import torch
     import torch.nn.functional as F
 
     n = N
+    name = str(dtype or torch.float32).removeprefix("torch.")
     if kernel == "quant_allreduce":
         from ompi_tpu_torch.coll import quant
 
@@ -3275,8 +3664,8 @@ def timed_case(pr, kernel, nbytes, gen):
     if kernel == "sched_table":
         # the main row: the segmented program (small sizes: the ring's)
         fn, plain, library, bound = sched_case(
-            "seg" if nbytes >= GIB else "ring", nbytes, gen)
-        return fn, plain, library, bound, "float32", "sum"
+            "seg" if nbytes >= GIB else "ring", nbytes, gen, dtype)
+        return fn, plain, library, bound, name, "sum"
     if kernel == "selfdma_chunked":
         x = random_rank_major((1, nbytes // 4), torch.float32, gen)
         rows, seg_rows = pr._chunked_layout(nbytes // 4, 1, torch.float32,
@@ -3288,7 +3677,8 @@ def timed_case(pr, kernel, nbytes, gen):
                 lambda: pr.selfdma_chunked_plain(x, seg),
                 lambda: x.clone(), 2 * nbytes, "float32", None)
     if kernel in MAIN_SIZES:
-        x = random_rank_major((n, nbytes // 4), torch.float32, gen)
+        dt = dtype or torch.float32
+        x = random_rank_major((n, nbytes // dt.itemsize), dt, gen)
         if kernel == "ring_allreduce_rd":
             inp = x
             fn = lambda: pr.ring_allreduce_rd(inp, "sum")  # noqa: E731
@@ -3298,22 +3688,22 @@ def timed_case(pr, kernel, nbytes, gen):
             fn = lambda: pr.ring_allreduce(inp, "sum")  # noqa: E731
             plain = lambda: pr.ring_allreduce_plain(inp, "sum")  # noqa: E731
         else:
-            rows_, seg_rows = pr._chunked_layout(nbytes // 4, n,
-                                                 torch.float32, MIB)
+            rows_, seg_rows = pr._chunked_layout(x.shape[1], n, dt, MIB)
             inp = x.reshape(n, n, rows_ * pr.LANES)
             seg = seg_rows * pr.LANES
             fn = lambda: pr.ring_allreduce_chunked(inp, "sum", seg)  # noqa: E731
             plain = lambda: pr.ring_allreduce_chunked_plain(  # noqa: E731
                 inp, "sum", seg)
         library = lambda: x.sum(0, keepdim=True).expand_as(x).contiguous()  # noqa: E731
-        return fn, plain, library, 2 * n * nbytes, "float32", "sum"
+        return fn, plain, library, 2 * n * nbytes, name, "sum"
     if kernel == "ring_allreduce_bidir":
-        x = random_rank_major((n, nbytes // 4), torch.float32, gen)
+        dt = dtype or torch.float32
+        x = random_rank_major((n, nbytes // dt.itemsize), dt, gen)
         inp, _, _ = pr._split_ring(x)  # 1 MiB: blocks of 256-lane multiples
         return (lambda: pr.ring_allreduce_bidir(inp, "sum"),
                 lambda: pr.ring_allreduce_bidir_plain(inp, "sum"),
                 lambda: x.sum(0, keepdim=True).expand_as(x).contiguous(),
-                2 * n * nbytes, "float32", "sum")
+                2 * n * nbytes, name, "sum")
     if kernel in MOVE_CASES:
         x = move_input(kernel, nbytes, gen)  # multiples of 128 lanes
         if kernel == "ring_alltoall":
@@ -3328,7 +3718,7 @@ def timed_case(pr, kernel, nbytes, gen):
         return (lambda: pr.linear_scatter(x, SCATTER_ROOT),
                 lambda: pr.linear_scatter_plain(x, SCATTER_ROOT),
                 lambda: x.clone(), 2 * n * nbytes, "float32", None)
-    x = coll_input(kernel, nbytes, gen)  # sizes are multiples of 128 lanes
+    x = coll_input(kernel, nbytes, gen, dtype)  # multiples of 128 lanes
     if kernel == "tree_bcast":
         return (lambda: pr.tree_bcast(x, BCAST_ROOT),
                 lambda: pr.tree_bcast_plain(x, BCAST_ROOT),
@@ -3337,11 +3727,12 @@ def timed_case(pr, kernel, nbytes, gen):
     if kernel == "tree_reduce":
         return (lambda: pr.tree_reduce(x, "max", REDUCE_ROOT),
                 lambda: pr.tree_reduce_plain(x, "max", REDUCE_ROOT),
-                lambda: x.amax(0), n * nbytes + nbytes, "int32", "max")
+                lambda: x.amax(0), n * nbytes + nbytes,
+                str(x.dtype).removeprefix("torch."), "max")
     if kernel == "ring_reduce_scatter":
         return (lambda: pr.ring_reduce_scatter(x, "sum"),
                 lambda: pr.ring_reduce_scatter_plain(x, "sum"),
-                lambda: x.sum(0), n * nbytes + nbytes, "float32", "sum")
+                lambda: x.sum(0), n * nbytes + nbytes, name, "sum")
     return (lambda: pr.ring_allgather(x),
             lambda: pr.ring_allgather_plain(x),
             lambda: x.unsqueeze(0).expand((n,) + tuple(x.shape)).contiguous(),
@@ -3381,6 +3772,14 @@ def measure(pr, gen, errs, launches) -> list:
         del fn, plain, library
         torch.cuda.empty_cache()
         extra = ""
+        if kernel in F64_KERNELS:
+            fn, _, _, _, _, _ = timed_case(pr, kernel, nbytes, gen,
+                                           torch.float64)
+            row["float64"] = {"ms": p50_ms(fn, KERNEL_REPS),
+                              "bytes_per_rank": nbytes}
+            extra = f", float64 {row['float64']['ms']:.4f} ms"
+            del fn
+            torch.cuda.empty_cache()
         if kernel in COLL_CASES or kernel in MOVE_CASES \
                 or kernel in SCHED_KERNELS or kernel == "quant_allreduce":
             small = QUANT_SMALL if kernel == "quant_allreduce" else 4 * KIB
@@ -3388,7 +3787,7 @@ def measure(pr, gen, errs, launches) -> list:
             row["small_ms"] = p50_ms(fn, KERNEL_REPS)
             row["small_bytes_per_rank"] = small
             row["small_bound_ms"] = small_moved / HBM_BYTES_PER_S * 1e3
-            extra = f", {row['small_ms']:.4f} ms at {small} B/rank"
+            extra += f", {row['small_ms']:.4f} ms at {small} B/rank"
             del fn
         if exact_sum_ms is not None:
             row["exact_sum_ms"] = exact_sum_ms
@@ -3825,7 +4224,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    log(smi.splitlines()[0])
+    CARD[0] = smi.splitlines()[0]
+    log(CARD[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -3855,12 +4255,16 @@ def main() -> int:
         f"products in full f32)")
     attn_errs = attn_kernel_vs_plain(gen)
     attn_errs["ppermute_shift"] = hop_err
+    model_attention_check(gen)
     torch.cuda.reset_peak_memory_stats()
     errs, launches = main_path(tt, pr, config)
     errs.update(attn_errs)
     log(f"[main] launches on the main path: {launches}")
     log(f"[memory] max_memory_allocated {PEAK[0]} bytes")
     rows = measure(pr, gen, errs, launches) + attn_rows(gen, errs, launches)
+    for row in rows:
+        if row["name"] == "ring_attention":
+            row["also"].append(dict(MODEL_ATTN))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -306,7 +306,12 @@ SELFDMA = KernelCounter("selfdma_chunked")
 PPERMUTE = KernelCounter("ppermute_shift")
 
 _OP_CODES = {"sum": 0, "prod": 1, "max": 2, "min": 3}
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+#: The reduction kernels' element types (csrc/ring_common.cuh's
+#: DtypeCode): each kernel is instantiated for every pair of these and
+#: ``_OP_CODES``.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2,
+                torch.float64: 3, torch.float16: 4, torch.int8: 5,
+                torch.uint8: 6}
 
 
 # ---------------------------------------------------------------------------

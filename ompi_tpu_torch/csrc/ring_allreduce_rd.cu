@@ -168,7 +168,7 @@ extern "C" int ompi_ring_allreduce_rd(const void* x, void* out, void* comm,
     return launch_cooperative(fn, n * stripes, threads, args, device,
                               stream);
   }
-  const long long bytes = L * (dtype == DT_BF16 ? 2 : 4);
+  const long long bytes = L * dtype_size(dtype);
   long long cv = bytes / 16;
   long long sv = (cv + stripes - 1) / stripes;
   if (n > 8 || bytes & 15 || sv > threads) return (int)cudaErrorInvalidValue;

@@ -20,6 +20,7 @@
 
 #include <cuda/atomic>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,7 +32,28 @@ namespace ompi_ring {
 constexpr int kThreads = 1024;
 
 enum OpCode { OP_SUM = 0, OP_PROD = 1, OP_MAX = 2, OP_MIN = 3 };
-enum DtypeCode { DT_F32 = 0, DT_BF16 = 1, DT_I32 = 2 };
+// The reduction kernels' element types, in pallas_ring._DTYPE_CODES's
+// order.
+enum DtypeCode {
+  DT_F32 = 0,
+  DT_BF16 = 1,
+  DT_I32 = 2,
+  DT_F64 = 3,
+  DT_F16 = 4,
+  DT_I8 = 5,
+  DT_U8 = 6
+};
+
+// Bytes of one element of a dtype code (0 for an unknown code).
+__host__ __device__ inline int dtype_size(int dt) {
+  switch (dt) {
+    case DT_F32: case DT_I32: return 4;
+    case DT_F64: return 8;
+    case DT_BF16: case DT_F16: return 2;
+    case DT_I8: case DT_U8: return 1;
+    default: return 0;
+  }
+}
 
 // ---- combine -------------------------------------------------------------
 
@@ -42,6 +64,26 @@ __device__ __forceinline__ float combine_f32(float a, float b) {
   // NaN propagates, as jnp.maximum / jnp.minimum do (fmaxf would drop it).
   if (a != a) return a;
   if (b != b) return b;
+  if (OP == OP_MAX) return a > b ? a : b;
+  return a < b ? a : b;
+}
+
+template <int OP>
+__device__ __forceinline__ double combine_f64(double a, double b) {
+  if (OP == OP_SUM) return a + b;
+  if (OP == OP_PROD) return a * b;
+  if (a != a) return a;
+  if (b != b) return b;
+  if (OP == OP_MAX) return a > b ? a : b;
+  return a < b ? a : b;
+}
+
+// int8/uint8: SUM/PROD wrap modulo 256 (as XLA's and torch's do), MAX/MIN
+// compare signed for int8 and unsigned for uint8 (I's own order).
+template <typename I, int OP>
+__device__ __forceinline__ I combine_i8(I a, I b) {
+  if (OP == OP_SUM) return (I)(unsigned char)((unsigned)a + (unsigned)b);
+  if (OP == OP_PROD) return (I)(unsigned char)((unsigned)a * (unsigned)b);
   if (OP == OP_MAX) return a > b ? a : b;
   return a < b ? a : b;
 }
@@ -78,6 +120,34 @@ template <int OP> struct Combine<int, OP> {
   }
 };
 
+template <int OP> struct Combine<double, OP> {
+  __device__ __forceinline__ static double apply(double a, double b) {
+    return combine_f64<OP>(a, b);
+  }
+};
+
+// f16: compute in f32 and round once to f16 per step. One f16 sum or
+// product rounded from f32 equals the f16 operation itself (f32's 24
+// bits >= 2 * 11 + 2, so the double rounding is innocuous).
+template <int OP> struct Combine<__half, OP> {
+  __device__ __forceinline__ static __half apply(__half a, __half b) {
+    return __float2half_rn(
+        combine_f32<OP>(__half2float(a), __half2float(b)));
+  }
+};
+
+template <int OP> struct Combine<int8_t, OP> {
+  __device__ __forceinline__ static int8_t apply(int8_t a, int8_t b) {
+    return combine_i8<int8_t, OP>(a, b);
+  }
+};
+
+template <int OP> struct Combine<uint8_t, OP> {
+  __device__ __forceinline__ static uint8_t apply(uint8_t a, uint8_t b) {
+    return combine_i8<uint8_t, OP>(a, b);
+  }
+};
+
 // ---- comm-slot access: global loads/stores that bypass L1, so a value
 // another SM stored is never served from a stale L1 line. ----------------
 
@@ -93,6 +163,18 @@ __device__ __forceinline__ __nv_bfloat16 ld_cg(const __nv_bfloat16* p) {
   return __ushort_as_bfloat16(
       __ldcg(reinterpret_cast<const unsigned short*>(p)));
 }
+template <> __device__ __forceinline__ double ld_cg(const double* p) {
+  return __ldcg(p);
+}
+template <> __device__ __forceinline__ __half ld_cg(const __half* p) {
+  return __ushort_as_half(__ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+template <> __device__ __forceinline__ int8_t ld_cg(const int8_t* p) {
+  return __ldcg(p);
+}
+template <> __device__ __forceinline__ uint8_t ld_cg(const uint8_t* p) {
+  return __ldcg(p);
+}
 
 template <typename T> __device__ __forceinline__ void st_cg(T* p, T v);
 template <> __device__ __forceinline__ void st_cg(float* p, float v) {
@@ -104,6 +186,18 @@ template <> __device__ __forceinline__ void st_cg(int* p, int v) {
 template <>
 __device__ __forceinline__ void st_cg(__nv_bfloat16* p, __nv_bfloat16 v) {
   __stcg(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(v));
+}
+template <> __device__ __forceinline__ void st_cg(double* p, double v) {
+  __stcg(p, v);
+}
+template <> __device__ __forceinline__ void st_cg(__half* p, __half v) {
+  __stcg(reinterpret_cast<unsigned short*>(p), __half_as_ushort(v));
+}
+template <> __device__ __forceinline__ void st_cg(int8_t* p, int8_t v) {
+  __stcg(p, v);
+}
+template <> __device__ __forceinline__ void st_cg(uint8_t* p, uint8_t v) {
+  __stcg(p, v);
 }
 
 // ---- flags (the semaphores) ------------------------------------------------
@@ -430,7 +524,8 @@ __device__ __forceinline__ void bulk_out(char* dst, unsigned src,
 
 // ---- 16-byte vectors -------------------------------------------------------
 
-// One 32-bit word of a vector: its elements combined pairwise.
+// One 32-bit word of a vector: its elements combined pairwise (the
+// 2-byte types two halves a word, the 1-byte types four lanes).
 template <typename T, int OP> struct WordCombine;
 template <int OP> struct WordCombine<float, OP> {
   __device__ __forceinline__ static unsigned apply(unsigned a, unsigned b) {
@@ -453,13 +548,62 @@ template <int OP> struct WordCombine<__nv_bfloat16, OP> {
     return half(a & 0xffffu, b & 0xffffu) | (half(a >> 16, b >> 16) << 16);
   }
 };
+template <int OP> struct WordCombine<__half, OP> {
+  __device__ __forceinline__ static unsigned half(unsigned a, unsigned b) {
+    return __half_as_ushort(Combine<__half, OP>::apply(
+        __ushort_as_half((unsigned short)a),
+        __ushort_as_half((unsigned short)b)));
+  }
+  __device__ __forceinline__ static unsigned apply(unsigned a, unsigned b) {
+    return half(a & 0xffffu, b & 0xffffu) | (half(a >> 16, b >> 16) << 16);
+  }
+};
+// Four byte lanes: the SIMD video instructions for SUM (a lane's sum
+// wraps, no carry into the next), MAX and MIN; PROD lane by lane (the
+// low byte of a product depends on the factors' low bytes alone).
+template <int OP> struct WordCombine<int8_t, OP> {
+  __device__ __forceinline__ static unsigned apply(unsigned a, unsigned b) {
+    if (OP == OP_SUM) return __vadd4(a, b);
+    if (OP == OP_MAX) return __vmaxs4(a, b);
+    if (OP == OP_MIN) return __vmins4(a, b);
+    unsigned r = 0;
+#pragma unroll
+    for (int i = 0; i < 32; i += 8) r |= (((a >> i) * (b >> i)) & 0xffu) << i;
+    return r;
+  }
+};
+template <int OP> struct WordCombine<uint8_t, OP> {
+  __device__ __forceinline__ static unsigned apply(unsigned a, unsigned b) {
+    if (OP == OP_SUM) return __vadd4(a, b);
+    if (OP == OP_MAX) return __vmaxu4(a, b);
+    if (OP == OP_MIN) return __vminu4(a, b);
+    unsigned r = 0;
+#pragma unroll
+    for (int i = 0; i < 32; i += 8) r |= (((a >> i) * (b >> i)) & 0xffu) << i;
+    return r;
+  }
+};
 
-// Elementwise combine(a, b) of two 16-byte vectors of T.
+// Elementwise combine(a, b) of two 16-byte vectors of T: four 32-bit
+// words, or for an 8-byte T two elements that each span two words.
 template <typename T, int OP>
 __device__ __forceinline__ uint4 combine_vec(uint4 a, uint4 b) {
-  using W = WordCombine<T, OP>;
-  return make_uint4(W::apply(a.x, b.x), W::apply(a.y, b.y),
-                    W::apply(a.z, b.z), W::apply(a.w, b.w));
+  if constexpr (sizeof(T) == 8) {
+    const double lo = Combine<T, OP>::apply(
+        __hiloint2double((int)a.y, (int)a.x),
+        __hiloint2double((int)b.y, (int)b.x));
+    const double hi = Combine<T, OP>::apply(
+        __hiloint2double((int)a.w, (int)a.z),
+        __hiloint2double((int)b.w, (int)b.z));
+    return make_uint4((unsigned)__double2loint(lo),
+                      (unsigned)__double2hiint(lo),
+                      (unsigned)__double2loint(hi),
+                      (unsigned)__double2hiint(hi));
+  } else {
+    using W = WordCombine<T, OP>;
+    return make_uint4(W::apply(a.x, b.x), W::apply(a.y, b.y),
+                      W::apply(a.z, b.z), W::apply(a.w, b.w));
+  }
 }
 
 // ---- L2 cache policies -----------------------------------------------------
@@ -710,24 +854,26 @@ inline int launch_cooperative(const void* fn, int blocks, void** args,
 
 }  // namespace ompi_ring
 
-// Instantiate KERNEL<T, OP> for the (op, dtype) codes and return it as a
-// launchable pointer (nullptr for an unknown pair).
+// Instantiate KERNEL<T, OP> for the (op, dtype) codes (DtypeCode x
+// OpCode: 7 x 4) and return it as a launchable pointer (nullptr for an
+// unknown pair).
+#define OMPI_RING_PICK_DT(KERNEL, T, base)                            \
+  case base + 0: return (const void*)KERNEL<T, OP_SUM>;               \
+  case base + 1: return (const void*)KERNEL<T, OP_PROD>;              \
+  case base + 2: return (const void*)KERNEL<T, OP_MAX>;               \
+  case base + 3: return (const void*)KERNEL<T, OP_MIN>;
 #define OMPI_RING_PICK(KERNEL)                                        \
   [](int op, int dt) -> const void* {                                 \
     using namespace ompi_ring;                                        \
+    if (op < 0 || op > 3) return nullptr;                             \
     switch (dt * 4 + op) {                                            \
-      case 0: return (const void*)KERNEL<float, OP_SUM>;              \
-      case 1: return (const void*)KERNEL<float, OP_PROD>;             \
-      case 2: return (const void*)KERNEL<float, OP_MAX>;              \
-      case 3: return (const void*)KERNEL<float, OP_MIN>;              \
-      case 4: return (const void*)KERNEL<__nv_bfloat16, OP_SUM>;      \
-      case 5: return (const void*)KERNEL<__nv_bfloat16, OP_PROD>;     \
-      case 6: return (const void*)KERNEL<__nv_bfloat16, OP_MAX>;      \
-      case 7: return (const void*)KERNEL<__nv_bfloat16, OP_MIN>;      \
-      case 8: return (const void*)KERNEL<int, OP_SUM>;                \
-      case 9: return (const void*)KERNEL<int, OP_PROD>;               \
-      case 10: return (const void*)KERNEL<int, OP_MAX>;               \
-      case 11: return (const void*)KERNEL<int, OP_MIN>;               \
+      OMPI_RING_PICK_DT(KERNEL, float, 0)                             \
+      OMPI_RING_PICK_DT(KERNEL, __nv_bfloat16, 4)                     \
+      OMPI_RING_PICK_DT(KERNEL, int, 8)                               \
+      OMPI_RING_PICK_DT(KERNEL, double, 12)                           \
+      OMPI_RING_PICK_DT(KERNEL, __half, 16)                           \
+      OMPI_RING_PICK_DT(KERNEL, int8_t, 20)                           \
+      OMPI_RING_PICK_DT(KERNEL, uint8_t, 24)                          \
       default: return nullptr;                                        \
     }                                                                 \
   }

@@ -1,12 +1,21 @@
-"""Parallelism strategies built on the collective substrate (part of the
-port of ``ompi_tpu/parallel``).
+"""Parallelism strategies built on the collective substrate (port of
+``ompi_tpu/parallel``).
 
-Ported so far: ``sp``, sequence/context parallelism (ring attention over
-the rank axis of rank-major tensors), and data parallelism: ``bucketer``
-(gradient buckets, one allreduce each), ``overlap`` (the tile-granular
-DP overlap session over a compiled step program) and ``dp``.
+The reference is a communication library with no DP/TP/PP/SP/EP engines;
+SURVEY §2.6 maps each strategy to the comm primitives it is built from.
+Each strategy here works on rank-major tensors, over one named axis of
+a ``mesh_utils.Mesh`` of virtual ranks:
+
+- dp: data parallelism (gradient allreduce through ``bucketer``'s
+  buckets; ``overlap``'s tile-granular DP overlap session)
+- tp: tensor parallelism (Megatron column/row sharding with
+  allgather / reduce_scatter sequence transitions)
+- sp: sequence/context parallelism (ring attention)
+- pp: pipeline parallelism (a GPipe schedule over ring shifts)
+- ep: expert parallelism (capacity-based MoE dispatch via all_to_all)
 """
 
-from . import bucketer, dp, overlap, sp
+from . import bucketer, dp, ep, mesh_utils, overlap, pp, sp, tp
 
-__all__ = ["bucketer", "dp", "overlap", "sp"]
+__all__ = ["bucketer", "dp", "ep", "mesh_utils", "overlap", "pp", "sp",
+           "tp"]

@@ -75,6 +75,9 @@ def p50_host_ms(fn, reps=REPS) -> float:
     return statistics.median(times)
 
 
+PROFILE_TRIES = 3
+
+
 def profile(fn, kernel: str = "ring_allreduce", trace: str = TRACE) -> dict:
     """p50s (ms) of one call's pieces, read from the profiler's trace:
     the device time of each kernel (or device-to-device copy, as
@@ -87,25 +90,31 @@ def profile(fn, kernel: str = "ring_allreduce", trace: str = TRACE) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with prof_ctx(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            with record_function("probe_call"):
-                fn()
-            torch.cuda.synchronize()
-    os.makedirs(os.path.dirname(trace), exist_ok=True)
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)["traceEvents"]
+    # On the card's machine a profiling session now and then records no
+    # device activity at all (the session before and after do): such a
+    # session is profiled again, up to PROFILE_TRIES times.
+    for _ in range(PROFILE_TRIES):
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                with record_function("probe_call"):
+                    fn()
+                torch.cuda.synchronize()
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy")]
+        if kernels:
+            break
+    else:
+        return {"device_events": 0}
     calls = [e for e in events if e.get("name") == "probe_call"
              and e.get("ph") == "X" and e.get("cat") == "user_annotation"]
     runtime = {e["args"]["correlation"]: e for e in events
                if e.get("cat") == "cuda_runtime" and "correlation" in
                e.get("args", {})}
-    kernels = [e for e in events
-               if e.get("cat") in ("kernel", "gpu_memcpy")]
-    if not kernels:
-        return {"device_events": 0}
     pieces: dict = {}
     for call in calls:
         t0, t1 = call["ts"], call["ts"] + call["dur"]

@@ -39,6 +39,9 @@ from ompi_tpu_torch.core.errors import ArgumentError
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
        "int32": torch.int32}
+# The reduction kernels' seven element types (pallas_ring._DTYPE_CODES).
+RDT = dict(TDT, float64=torch.float64, float16=torch.float16,
+           int8=torch.int8, uint8=torch.uint8)
 OPS = ("sum", "max", "min", "prod")
 
 
@@ -50,16 +53,28 @@ def cuda():
 
 
 def _input(n, elems, dtype, device):
+    """Seeded inputs: int32 in [-1000, 1000), int8 and uint8 over their
+    whole range (SUM and PROD wrap), normal floats (float64 drawn in
+    float64, the others in float32 and rounded)."""
     rng = np.random.default_rng(9)
-    if dtype == "int32":
+    if dtype in ("int8", "uint8"):
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max + 1, (n, elems)).astype(dtype)
+    elif dtype == "int32":
         x = rng.integers(-1000, 1000, (n, elems)).astype(np.int32)
+    elif dtype == "float64":
+        x = rng.standard_normal((n, elems))
     else:
         x = rng.standard_normal((n, elems)).astype(np.float32)
-    return torch.from_numpy(x).to(TDT[dtype]).to(device)
+    return torch.from_numpy(x).to(RDT[dtype]).to(device)
 
 
 def _bits(t):
-    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    """Floats as the integers of their bits: equal means bitwise equal."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
 
 
 TIERS = {
@@ -72,7 +87,7 @@ TIERS = {
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("tier,n", [("ring", 3), ("chunked", 3), ("rd", 8),
                                     ("ring", 8), ("chunked", 2)])
 def test_kernel_matches_plain_on_card(cuda, tier, n, dtype):
@@ -99,7 +114,7 @@ def _launched_once(counter, run):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 3, 8])
 def test_ring_halves_match_plain_on_card(cuda, n, dtype):
     x = _input(n, n * 700, dtype, cuda).reshape(n, n, 700)  # ragged lanes
@@ -119,7 +134,7 @@ def test_ring_halves_match_plain_on_card(cuda, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 3, 8])
 def test_trees_match_plain_on_card(cuda, n, dtype):
     x = _input(n, 5000, dtype, cuda)
@@ -134,7 +149,7 @@ def test_trees_match_plain_on_card(cuda, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 3, 8])
 def test_redesigned_kernels_match_plain_at_several_segments(cuda, n, dtype):
     """The fold-then-forward ring over several stripes, the last ragged,
@@ -158,7 +173,7 @@ def test_redesigned_kernels_match_plain_at_several_segments(cuda, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 3, 8, 12])
 def test_bcast_and_reduce_scatter_match_plain_at_several_segments(cuda, n,
                                                                   dtype):
@@ -168,7 +183,7 @@ def test_bcast_and_reduce_scatter_match_plain_at_several_segments(cuda, n,
     and with three, its buffers where the plan puts them (a cluster's
     shared memory up to n = 8, L2 at n = 12) and in L2: bitwise their
     plain versions, every flag at 0."""
-    elem = torch.empty((), dtype=TDT[dtype]).element_size()
+    elem = RDT[dtype].itemsize
     y = _input(n, 3 * pr.BCAST_SEG_BYTES // elem + 5000, dtype, cuda)
     for root in (0, n - 1):
         got = _launched_once(pr.TREE_BCAST, lambda: pr.tree_bcast(y, root))
@@ -188,7 +203,7 @@ def test_bcast_and_reduce_scatter_match_plain_at_several_segments(cuda, n,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT) + ["float16", "float64", "int8"])
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 3, 8, 12])
 def test_allgather_matches_plain_at_several_segments(cuda, n, dtype):
     """The allgather's wavefront at ragged blocks of fewer segments than
@@ -213,7 +228,7 @@ def test_allgather_matches_plain_at_several_segments(cuda, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 3, 8, 12])
 def test_chunked_matches_plain_at_several_plans(cuda, n, dtype):
     """The chunked ring's wavefront at ragged blocks of fewer segments
@@ -221,7 +236,7 @@ def test_chunked_matches_plain_at_several_plans(cuda, n, dtype):
     one, its buffers where the plan puts them (a cluster's shared memory
     up to n = 8, L2 at n = 12) and in L2: bitwise its plain version,
     every flag at 0."""
-    seg = pr.CHUNKED_CLUSTER_SEG_BYTES // 4
+    seg = pr.CHUNKED_CLUSTER_SEG_BYTES // RDT[dtype].itemsize
     for W in (3 * seg - 40, 40 * seg + 77):
         x = _input(n, n * W, dtype, cuda).reshape(n, n, W)
         for op in OPS:
@@ -238,7 +253,7 @@ def test_chunked_matches_plain_at_several_plans(cuda, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT) + ["float16", "float64", "int8"])
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 3, 8, 12])
 def test_scatter_matches_plain_at_several_plans(cuda, n, dtype):
     """The scatter's pieces at rows that are not whole 16-byte vectors
@@ -260,7 +275,7 @@ def test_scatter_matches_plain_at_several_plans(cuda, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT) + ["float16", "float64", "int8"])
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 3, 8, 12])
 def test_gather_matches_plain_at_several_plans(cuda, n, dtype):
     """The gather's pools at rows that are not whole 16-byte vectors (the
@@ -287,7 +302,7 @@ def test_gather_matches_plain_at_several_plans(cuda, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 4, 8, 16])
 def test_rd_forms_match_plain_on_card(cuda, n, dtype):
     """Recursive doubling in the plan's form (a cluster's shared memory
@@ -378,7 +393,7 @@ def test_redesigned_kernels_give_the_same_bits_over_50_launches(cuda,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 3, 8])
 def test_bidir_matches_plain_on_card(cuda, n, dtype):
     x = _input(n, 5000, dtype, cuda)  # ring blocks padded to 256 lanes
@@ -423,9 +438,9 @@ def test_data_movers_match_plain_on_card(cuda, n, dtype):
 
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    x = torch.ones(2, 2, 128, dtype=torch.float16, device=cuda)
+    x = torch.ones(2, 2, 128, dtype=torch.int16, device=cuda)
     with pytest.raises(ArgumentError):
-        pr.ring_allreduce(x, "sum")  # no float16 kernel, and no fallback
+        pr.ring_allreduce(x, "sum")  # no int16 kernel, and no fallback
     with pytest.raises(ArgumentError):
         pr.ring_allreduce(x.float(), "land")
     with pytest.raises(ArgumentError):
@@ -443,11 +458,43 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ArgumentError):
         pr._gather_launch(x[:, 0], 0, piece=24)  # not a 16-byte multiple
     with pytest.raises(ArgumentError):
-        pr.ring_allreduce_rd(x[:, 0], "sum")  # no float16 kernel
+        pr.ring_allreduce_rd(x[:, 0], "sum")  # no int16 kernel
     with pytest.raises(ArgumentError):
         pr.ring_allreduce_rd(torch.ones(6, 128, device=cuda), "sum")
     with pytest.raises(ArgumentError):  # clusters hold at most 8 ranks
         pr._rd_launch(torch.ones(16, 128, device=cuda), "sum", cluster=True)
+
+
+#: The seven reduction kernels' SUM on (n, n, C) blocks (recursive
+#: doubling and the tree reduce, to root 1, on one block a rank).
+SUMS = {
+    "ring_allreduce": (pr.RING, lambda b: pr.ring_allreduce(b, "sum")),
+    "ring_allreduce_chunked": (pr.CHUNKED, lambda b: pr.ring_allreduce_chunked(
+        b, "sum", b.shape[-1])),
+    "ring_allreduce_rd": (pr.RD, lambda b: pr.ring_allreduce_rd(b[:, 0],
+                                                                "sum")),
+    "ring_reduce_scatter": (pr.RS, lambda b: pr.ring_reduce_scatter(b, "sum")),
+    "tree_reduce": (pr.TREE_REDUCE, lambda b: pr.tree_reduce(b[:, 0], "sum",
+                                                             1)[1]),
+    "ring_allreduce_bidir": (pr.BIDIR, lambda b: pr.ring_allreduce_bidir(
+        b, "sum")),
+    "sched_table": (pl.SCHED_TABLE, lambda b: pl.sched_table(
+        pl.analyze(ir.ring(b.shape[0])), b, "sum")),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", sorted(SUMS))
+@pytest.mark.parametrize("dtype", ["int8", "uint8"])
+@pytest.mark.parametrize("n", [4, 8])  # recursive doubling: powers of two
+def test_int_sums_wrap_on_card(cuda, kernel, dtype, n):
+    """An int8/uint8 SUM of 100 on every rank gives 100 n modulo 256
+    (in the dtype's range), as the JAX package's int8 arithmetic wraps."""
+    counter, run = SUMS[kernel]
+    x = torch.full((n, n, 1234), 100, dtype=RDT[dtype], device=cuda)
+    got = _launched_once(counter, lambda: run(x))
+    want = torch.tensor((100 * n) % 256, dtype=torch.int32).to(RDT[dtype])
+    assert bool((got == want.to(cuda)).all()), (kernel, dtype, n)
 
 
 def _programs(n):
@@ -472,7 +519,7 @@ def _programs(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("dtype", sorted(RDT))
 @pytest.mark.parametrize("n", [2, 3, 4, 8, 12])
 def test_sched_table_matches_plain_on_card(cuda, n, dtype):
     """Every program at the plan's launch (clusters up to 8 ranks, L2

@@ -391,6 +391,6 @@ def test_kernel_input_validation():
     with pytest.raises(ArgumentError):
         pr._codes(lookup("land"), torch.float32)
     with pytest.raises(ArgumentError):
-        pr._codes(lookup("sum"), torch.float16)
+        pr._codes(lookup("sum"), torch.int16)
     with pytest.raises(ArgumentError):
         pr.simulate_ring(torch.ones(2, 2, 8), lookup("sum"), credit="bogus")

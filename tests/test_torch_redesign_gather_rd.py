@@ -343,7 +343,7 @@ def test_rd_refuses_what_it_does_not_take():
     with pytest.raises(ArgumentError):
         pr._rd_launch(x, "land")  # no kernel for the op
     with pytest.raises(ArgumentError):
-        pr._rd_launch(x.half(), "sum")  # nor for the dtype
+        pr._rd_launch(x.to(torch.int16), "sum")  # nor for the dtype
     with pytest.raises(KernelError):  # a CPU tensor: no kernel
         pr._rd_launch(x, "sum")
     with pytest.raises(ArgumentError):
